@@ -1,0 +1,63 @@
+"""What the port runs so far, and the device it runs on.
+
+Entry points call `check_supported` with the options they were given:
+anything the reference package offers but the port does not yet raises
+NotImplementedError naming its ROADMAP.md item.  `resolve_device` turns
+the `device` argument into a torch.device and refuses a CUDA device when
+no card is present (the port never falls back to the CPU silently).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+PORTED_BACKENDS = ("spmd",)
+_BACKEND_ITEMS = {"fast": 9, "jax": 11, "pallas": 11, "numpy": 11}
+
+
+def check_supported(
+    backend: str = "spmd",
+    n_devices: Optional[int] = None,
+    sr_reduce: str = "auto",
+    snpeff_annotate: bool = False,
+    checkpoint_dir: Optional[str] = None,
+) -> None:
+    if backend not in PORTED_BACKENDS:
+        item = _BACKEND_ITEMS.get(backend)
+        if item is None:
+            raise ValueError(f"unknown MI backend {backend!r}")
+        raise NotImplementedError(
+            f"backend={backend!r} is not ported yet (ROADMAP.md item {item});"
+            " use backend='spmd'"
+        )
+    if n_devices is not None and n_devices > 1:
+        raise NotImplementedError(
+            "n_devices > 1: multi-GPU is not ported yet (ROADMAP.md item 10)"
+        )
+    if sr_reduce in ("device", "part"):
+        raise NotImplementedError(
+            f"sr_reduce={sr_reduce!r}: the on-device SR reduction is not"
+            " ported yet (ROADMAP.md item 7); use 'auto' or 'host'"
+        )
+    if snpeff_annotate:
+        raise NotImplementedError(
+            "SnpEff_Annotate=True runs BLK8-BLK12, which are not ported yet"
+            " (ROADMAP.md item 6); pass SnpEff_Annotate=False"
+        )
+    if checkpoint_dir is not None:
+        raise NotImplementedError(
+            "checkpoint_dir: segment resume of the sweep is not ported yet"
+            " (ROADMAP.md item 12)"
+        )
+
+
+def resolve_device(device) -> torch.device:
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device='cuda' was asked for but no CUDA device is available;"
+            " pass device='cpu' to run the plain PyTorch versions"
+        )
+    return dev
