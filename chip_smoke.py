@@ -6,20 +6,40 @@ Hopper GPU: the quickest proof that the port builds and runs on the card.
 
 Phases (any failure exits nonzero before the final line):
   1. probe   - the card's name, capability (must be 9.0), power limit;
-  2. build   - every CUDA kernel of the port from ldweaver_tpu_torch/csrc,
-               one nvcc per source, all started together;
-  3. kernels - K1 (the rank-compacted MI tile) at the main path's tile
-               shape, B = 4096 SNPs x S = 616 genomes, for every bucket
-               (Rf, Rt, pure) below: kernel against its plain PyTorch
-               version on the card (max abs diff <= 2e-5) and against the
-               float64 oracle on a 256 x 256 sub-tile (rtol 2e-4, atol
-               2e-5); CUDA-event times of the kernel, the plain version
-               and one torch.matmul of the same contingency product;
+  2. build   - every CUDA kernel of the port from ldweaver_tpu_torch/csrc
+               (K1 rank_mi, K2 fused_tile, K3 compat_mi), one nvcc per
+               source, all started together;
+  3. kernels - K1 (the rank-compacted MI tile) at B = 4096 SNPs for every
+               bucket (Rf, Rt, pure) below at the spmd slice's S = 616
+               genomes, and for the LR sweep's K1 buckets at its S = 1024;
+     fused   - K2 (the fused LR stage-1 tile) at the LR sweep's shape,
+               B = 4096 x S = 1024, cross- and same-block with pad sites;
+     compat  - K3 (the 25-allele compat tile) at the compat pipeline's
+               tiles: 4000 x 4000, the ragged 4000 x 191 and the diagonal
+               191 x 191, S = 616, rxy_compat=True;
+               each kernel is held against its plain PyTorch version run
+               in float64 on the card (the exact result of the kernel's
+               own inputs; max abs diff <= 2e-5; for K2 the -inf chunks
+               equal and chosen columns equal except at near-ties, <= 1e-5
+               in the f64 tile) and against the host float64 oracle on a
+               sub-tile of up to 256 x 256 (K1, K2: rtol 2e-4, atol 2e-5;
+               K3: rtol 5e-5, atol 5e-6); CUDA-event times of the kernel,
+               of the plain version as the CPU path runs it (float32), and
+               of one bf16 torch.matmul of the same contingency product;
   4. small   - the port's pipeline on a small synthetic input on the card
-               and on the CPU (plain versions): link tables must agree;
-  5. slice   - the main path, `ldweaver(..., backend="spmd")` through
-               BLK1-BLK7 at 616 genomes x 2.2 Mb x 32,768 SNPs, with K1's
-               launch counts set to 0 just before and read just after.
+               and on the CPU (plain versions): link tables must agree,
+               for backend="spmd", "pallas" and "jax";
+  5. slice   - the spmd path, `ldweaver(..., backend="spmd")` through
+               BLK1-BLK7 at 616 genomes x 2.2 Mb x 32,768 SNPs;
+  6. lr      - the LR-only sweep `fast_lr_topk`: card against CPU at 64
+               genomes x 16,384 SNPs, then the bench.py sweep leg (the
+               `synth` recipe at 1024 genomes x 131,072 SNPs, block 4096,
+               top-k 1024): one warm call, 5 timed calls;
+  7. compat  - the compat path, `ldweaver(..., backend="pallas")` through
+               BLK1-BLK7 at 616 genomes x 2.2 Mb x 8,192 SNPs,
+               max_blk_sz=4000 (3 blocks, 6 tiles).
+Each path runs with the launch counts of its kernels set to 0 just before
+and read just after.
 
 Prints one JSON line of per-kernel numbers, then the card's name and
 power limit as nvidia-smi gives them, then the ok line.  The input data
@@ -48,9 +68,17 @@ BUCKETS = [  # (Rf, Rt, pure); (2,3,*) and (3,3,*) are what the slice runs
     (2, 2, True), (2, 2, False), (3, 2, False), (2, 3, False), (2, 3, True),
     (3, 3, True), (3, 3, False), (5, 5, False), (1, 2, False),
 ]
+# the K1 buckets of the LR sweep's input (K2 takes its (2,2,pure) tiles)
+LR_BUCKETS = [(2, 3, True), (2, 3, False), (3, 3, True), (3, 3, False)]
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, bf16 tensor FLOP/s
 HBM_BPS = 3.35e12
 BF16_FLOPS = 989e12
+G = 2_200_000  # S. pneumoniae-scale genome (bench.py)
+SR_DIST = 20000
+K2_S = 1024  # genomes in the LR sweep (bench.py sweep leg)
+K3_F, K3_EDGE = 4000, 191  # the compat pipeline keeps 8,191 SNPs: blocks 4000, 4000, 191
+RTOL_K3, ATOL_K3 = 5e-5, 5e-6  # vs the f64 oracle (tests/test_pallas.py)
+NEAR_TIE = 1e-5
 
 
 def log(msg):
@@ -76,9 +104,10 @@ def probe():
     log(f"nvidia-smi: {smi}")
     if cap != (9, 0):
         raise RuntimeError(f"K1 is built for sm_90a; this card is sm_{cap[0]}{cap[1]}")
-    # state the float32 product precision the plain versions run at
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    from ldweaver_tpu_torch.support import resolve_device
+
+    resolve_device("cuda")  # the port's f32 product precision (TF32 off)
+    log(f"torch.backends.cuda.matmul.allow_tf32 = {torch.backends.cuda.matmul.allow_tf32}")
     return name, smi
 
 
@@ -117,7 +146,53 @@ def cuda_time_ms(fn, reps, warm=2):
     return a.elapsed_time(b) / reps
 
 
-def bucket_inputs(rng, Rf, Rt, pure):
+def bound(nbytes, flops):
+    """(bound_ms, bound_by): the larger of the bytes at the HBM rate and
+    the bf16 operations at the tensor-core rate."""
+    t_bytes, t_ops = nbytes / HBM_BPS, flops / BF16_FLOPS
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def bench_synth(nsnp, nseq, seed=0):
+    """bench.py's `synth` recipe: mostly biallelic sites (MAF 0.02-0.5),
+    ~15% of sites carrying N calls at 3%, positions over a 2.2 Mb genome,
+    Hamming-like weights in [0.05, 0.5]."""
+    rng = np.random.default_rng(seed)
+    major = rng.integers(0, 4, size=nsnp)
+    minor = (major + rng.integers(1, 4, size=nsnp)) % 4
+    maf = rng.uniform(0.02, 0.5, size=nsnp)
+    u = rng.random((nseq, nsnp))
+    codes = np.where(u < maf[None, :], minor[None, :], major[None, :]).astype(
+        np.uint8
+    )
+    del u
+    n_sites = rng.random(nsnp) < 0.15
+    ncells = (rng.random((nseq, nsnp)) < 0.03) & n_sites[None, :]
+    codes[ncells] = 4
+    del ncells
+    pos = np.sort(
+        rng.choice(np.arange(1, G + 1), size=nsnp, replace=False)
+    ).astype(np.int64)
+    acgtn = np.zeros((5, nsnp), np.int64)
+    for k in range(5):
+        acgtn[k] = (codes == k).sum(axis=0)
+    uqe = (acgtn > 0).astype(np.uint8).T
+    r = uqe.sum(axis=1).astype(np.int32)
+    w = rng.uniform(0.05, 0.5, size=nseq)
+    return codes, pos, uqe, r, w, acgtn
+
+
+def bench_snp_data(nsnp, nseq, seed=0):
+    from ldweaver_tpu_torch.core.snp_tensor import SnpData
+
+    codes, pos, uqe, r, w, acgtn = bench_synth(nsnp, nseq, seed)
+    sd = SnpData(codes=codes, pos=pos, g=G,
+                 seq_names=[str(i) for i in range(nseq)], acgtn_table=acgtn,
+                 uqe=uqe, r=r)
+    return sd, w
+
+
+def bucket_inputs(rng, Rf, Rt, pure, S):
     """Sequence-major rank codes [S, 2B] (rows' SNPs then columns'), with
     per-site r in 1..R (R present) or r == R when pure, and ranks skewed
     like real allele frequencies (rank 0 the major allele)."""
@@ -138,7 +213,12 @@ def bucket_inputs(rng, Rf, Rt, pure):
     return np.ascontiguousarray(np.concatenate([cf, ct], axis=1)), rf, rt, w
 
 
-def kernel_phase():
+def kernel_phase(S, buckets, seed):
+    """K1 at B x S for each bucket: against its plain version in float64
+    on the card (the exact tile of the kernel's own inputs) and the host
+    f64 oracle on a 256 x 256 sub-tile; CUDA-event times of the kernel,
+    the plain version as the CPU path runs it (float32) and one bf16
+    torch.matmul of the same contingency product."""
     import torch
 
     from ldweaver_tpu_torch.core.mi import mi_tile_numpy
@@ -146,10 +226,11 @@ def kernel_phase():
     from ldweaver_tpu_torch.parallel.fast_sweep import rank_marginals, wparts
 
     dev = torch.device("cuda")
-    rng = np.random.default_rng(20261016)
+    rng = np.random.default_rng(seed)
     rows = {}
-    for Rf, Rt, pure in BUCKETS:
-        codes_np, rf_np, rt_np, w = bucket_inputs(rng, Rf, Rt, pure)
+    for Rf, Rt, pure in buckets:
+        tag = f"K1 {Rf},{Rt},{'pure' if pure else 'general'} S={S}"
+        codes_np, rf_np, rt_np, w = bucket_inputs(rng, Rf, Rt, pure, S)
         codes = torch.from_numpy(codes_np).to(dev)
         w32, parts = wparts(w)
         w32, parts = w32.to(dev), parts.to(dev).contiguous()
@@ -161,12 +242,15 @@ def kernel_phase():
         args = (codes, 0, B, B, B, parts, px, py, r_f, r_t, neff, Rf, Rt, pure)
 
         got = rank_mi.rank_mi_tile(*args)
-        torch.cuda.synchronize()
+        exact = rank_mi.rank_mi_tile_reference(*args, dtype=torch.float64)
         plain = rank_mi.rank_mi_tile_reference(*args)
         torch.cuda.synchronize()
         if not bool(torch.isfinite(got).all()):
-            raise RuntimeError(f"K1 {Rf, Rt, pure}: non-finite output")
-        err = float((got - plain).abs().max())
+            raise RuntimeError(f"{tag}: non-finite output")
+        err = float((got.double() - exact).abs().max())
+        err32 = float((got - plain).abs().max())
+        err_plain = float((plain.double() - exact).abs().max())
+        del exact
         # f64 oracle on a 256 x 256 sub-tile (host, reference statistic)
         n = 256
         cf = np.ascontiguousarray(codes_np[:, :n].T)
@@ -190,24 +274,216 @@ def kernel_phase():
         else:
             library_ms = None  # no contraction: the tile is marginals only
         nbytes = S * 2 * B + 2 * 3 * S + 4 * (Rf + Rt) * B + 8 * B + 4 * B * B
-        flops = 2.0 * B * B * 3 * S * nc
-        t_bytes, t_ops = nbytes / HBM_BPS, flops / BF16_FLOPS
-        bound_ms = 1e3 * max(t_bytes, t_ops)
+        bound_ms, bound_by = bound(nbytes, 2.0 * B * B * 3 * S * nc)
         row = dict(
-            Rf=Rf, Rt=Rt, pure=pure, max_abs_err=err, f64_max_abs_err=err64,
+            Rf=Rf, Rt=Rt, pure=pure, S=S, max_abs_err=err,
+            f32_plain_max_abs_err=err32, f64_max_abs_err=err64,
             ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-            bound_ms=bound_ms, bound_by="bytes" if t_bytes >= t_ops else "operations",
+            bound_ms=bound_ms, bound_by=bound_by,
         )
         rows[(Rf, Rt, pure)] = row
-        log(f"K1 {Rf},{Rt},{'pure' if pure else 'general'}: kernel {ms:.3f} ms,"
-            f" plain {plain_ms:.3f} ms, matmul {library_ms} ms, bound"
-            f" {1e3 * bound_ms:.1f} us ({row['bound_by']}); max|kernel-plain|"
-            f" {err:.2e}, max|kernel-f64| {err64:.2e}")
+        log(f"{tag}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, matmul"
+            f" {library_ms} ms, bound {1e3 * bound_ms:.1f} us ({bound_by});"
+            f" max|kernel-plain64| {err:.2e} (f32 plain: kernel {err32:.2e},"
+            f" plain {err_plain:.2e}), max|kernel-f64 oracle| {err64:.2e}")
         if err > ATOL_PLAIN:
-            raise RuntimeError(f"K1 {Rf, Rt, pure}: kernel vs plain {err:.3e} > {ATOL_PLAIN}")
+            raise RuntimeError(f"{tag}: kernel vs plain (f64) {err:.3e} > {ATOL_PLAIN}")
         if not ok64:
-            raise RuntimeError(f"K1 {Rf, Rt, pure}: kernel vs f64 oracle {err64:.3e}")
+            raise RuntimeError(f"{tag}: kernel vs f64 oracle {err64:.3e}")
         del codes, got, plain, args
+        torch.cuda.empty_cache()
+    return rows
+
+
+def fused_inputs(rng, same):
+    """Biallelic rank codes [S, B] (same block) or [S, 2B] (rows' SNPs,
+    then the columns'), rank 0 the major allele, sorted positions per
+    block over the genome, pad sites at the ends of the blocks."""
+    n = B if same else 2 * B
+    maf = rng.uniform(0.02, 0.5, n)
+    codes = (rng.random((K2_S, n)) < maf[None, :]).astype(np.uint8)
+    pos = np.concatenate([
+        np.sort(rng.choice(np.arange(1, G + 1), B, replace=False))
+        for _ in range(n // B)
+    ]).astype(np.int32)
+    valid = np.ones(n, bool)
+    valid[B - 5 : B] = False
+    valid[n - 3 :] = False
+    w = 1.0 / rng.integers(1, 12, K2_S)
+    return np.ascontiguousarray(codes), pos, valid, w
+
+
+def fused_phase():
+    """K2 at the LR sweep's tile shape, cross- and same-block: against its
+    plain version in float64 on the card (the exact candidates of the
+    kernel's own inputs) and the host f64 oracle on the first 256 rows."""
+    import torch
+
+    from ldweaver_tpu_torch.core.mi import mi_tile_numpy
+    from ldweaver_tpu_torch.ops import fused_tile
+    from ldweaver_tpu_torch.ops.rank_mi import rank_mi_tile_reference
+    from ldweaver_tpu_torch.parallel.fast_sweep import (
+        rank_marginals,
+        tile_masks,
+        wparts,
+    )
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(20261017)
+    f64 = torch.float64
+    row = None
+    for same in (False, True):
+        tag = f"K2 {'same' if same else 'cross'}-block"
+        codes_np, pos_np, valid_np, w = fused_inputs(rng, same)
+        codes = torch.from_numpy(codes_np).to(dev)
+        w32, parts = wparts(w)
+        w32, parts = w32.to(dev), parts.to(dev).contiguous()
+        ts = 0 if same else B
+        pos = torch.from_numpy(pos_np).to(dev)
+        valid = torch.from_numpy(valid_np).to(dev)
+        px = rank_marginals(codes, 0, B, w32, 2)
+        py = rank_marginals(codes, ts, B, w32, 2)
+        neff = float(np.float32(w.sum()))
+        args = (codes, 0, ts, B, B, parts, px, py, pos[:B], pos[ts : ts + B],
+                valid[:B], valid[ts : ts + B], neff, same)
+        kw = dict(g=G, sr_dist=SR_DIST)
+        kv, kc = fused_tile.fused_tile_stage1(*args, **kw)
+        ev, ec = fused_tile.fused_tile_stage1_reference(*args, **kw, dtype=f64)
+        pv, _ = fused_tile.fused_tile_stage1_reference(*args, **kw)
+        torch.cuda.synchronize()
+        if not bool((torch.isneginf(kv) == torch.isneginf(ev)).all()):
+            raise RuntimeError(f"{tag}: -inf chunks differ")
+        fin = torch.isfinite(ev)
+        if torch.isnan(kv).any() or not bool(fin.any()) or bool(fin.all()):
+            raise RuntimeError(f"{tag}: expected live and masked chunks")
+        err = float((kv[fin].double() - ev[fin]).abs().max())
+        err32 = float((kv[fin] - pv[fin]).abs().max())
+        err_plain = float((pv[fin].double() - ev[fin]).abs().max())
+        mism = kc != ec
+        n_mism = int(mism.sum())
+        tie_gap = 0.0
+        if n_mism:  # near-ties, judged on the exact (f64) tile
+            two = torch.full((B,), 2.0, device=dev)
+            tile = rank_mi_tile_reference(codes, 0, ts, B, B, parts, px, py,
+                                          two, two, neff, 2, 2, True, dtype=f64)
+            rows_i = torch.nonzero(mism)[:, 0]
+            tie_gap = float((tile[rows_i, kc[mism].long()]
+                             - tile[rows_i, ec[mism].long()]).abs().max())
+            del tile
+        # the first 256 rows against the host f64 oracle (r = 2 everywhere:
+        # the general formula equals the pure one)
+        n = 256
+        two_np = np.full(B, 2)
+        uq = np.zeros((B, 5), np.uint8)
+        uq[:, :2] = 1
+        oracle = torch.from_numpy(mi_tile_numpy(
+            np.ascontiguousarray(codes_np[:, :n].T),
+            np.ascontiguousarray(codes_np[:, ts : ts + B].T), w, two_np[:n],
+            two_np, uq[:n], uq, float(w.sum()), rxy_compat=False))
+        _, lr_ok = tile_masks(pos[:n].cpu(), pos[ts : ts + B].cpu(),
+                              valid[:n].cpu(), valid[ts : ts + B].cpu(), same,
+                              G, SR_DIST)
+        o_vals, _ = fused_tile.chunk_max(torch.where(lr_ok, oracle, float("-inf")))
+        o_fin = torch.isfinite(o_vals)
+        k_sub = kv[:n].cpu().double()[o_fin]
+        err64 = float((k_sub - o_vals[o_fin]).abs().max())
+        log(f"{tag}: max|kernel-plain64| {err:.2e} (f32 plain: kernel"
+            f" {err32:.2e}, plain {err_plain:.2e}), max|kernel-f64 oracle|"
+            f" {err64:.2e} (256 rows); {n_mism} of {kc.numel()} chunks pick"
+            f" another column (max gap {tie_gap:.2e} in the f64 tile), live"
+            f" chunks {int(fin.sum())}")
+        if err > ATOL_PLAIN:
+            raise RuntimeError(f"{tag}: kernel vs plain (f64) {err:.3e} > {ATOL_PLAIN}")
+        if tie_gap > NEAR_TIE:
+            raise RuntimeError(f"{tag}: a divergent column is no near-tie ({tie_gap:.3e})")
+        if not torch.allclose(k_sub, o_vals[o_fin], rtol=RTOL_F64, atol=ATOL_F64):
+            raise RuntimeError(f"{tag}: kernel vs f64 oracle {err64:.3e}")
+        if not same:
+            ms = cuda_time_ms(lambda: fused_tile.fused_tile_stage1(*args, **kw), reps=20)
+            plain_ms = cuda_time_ms(
+                lambda: fused_tile.fused_tile_stage1_reference(*args, **kw), reps=3, warm=1)
+            lhs = torch.ones((B, 3 * K2_S), dtype=torch.bfloat16, device=dev)
+            rhs = torch.ones((B, 3 * K2_S), dtype=torch.bfloat16, device=dev)
+            library_ms = cuda_time_ms(lambda: torch.matmul(lhs, rhs.T), reps=20)
+            del lhs, rhs
+            nbytes = (K2_S * 2 * B + 2 * 3 * K2_S + 4 * 2 * 2 * B + 4 * 2 * B
+                      + 2 * B + 8 * B * (B // 128))
+            bound_ms, bound_by = bound(nbytes, 2.0 * B * B * 3 * K2_S)
+            row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+            log(f"K2 timing: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bf16"
+                f" matmul {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        else:
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+        del codes, kv, kc, ev, ec, pv, args
+        torch.cuda.empty_cache()
+    return row
+
+
+def compat_kernel_phase():
+    """K3 at the tile shapes of the 8,191-SNP compat pipeline: 4000 x 4000,
+    the ragged 4000 x 191 and the diagonal 191 x 191 (rxy_compat=True, so
+    the ragged tiles carry the column-major RXY alias).  Each against its
+    plain version in float64 on the card, and a sub-input of up to 256 x
+    256 against the host float64 oracle."""
+    import torch
+
+    from ldweaver_tpu_torch.core.mi import mi_tile_numpy
+    from ldweaver_tpu_torch.ops import compat_mi
+
+    dev = torch.device("cuda")
+    codes, _, uqe, r, w, _ = bench_synth(2 * K3_F, S, seed=3)
+    rows = {}
+    # (F, T, first column of the column block): cross-block tiles read the
+    # second half of the sites, the diagonal tile its own rows
+    for F, T, t0 in ((K3_F, K3_F, K3_F), (K3_F, K3_EDGE, K3_F), (K3_EDGE, K3_EDGE, 0)):
+        tag = f"K3 {F}x{T}"
+        cf = np.ascontiguousarray(codes[:, :F].T)
+        ct = np.ascontiguousarray(codes[:, t0 : t0 + T].T)
+
+        def host(n_f, n_t):
+            return (cf[:n_f], ct[:n_t], w, r[:n_f], r[t0 : t0 + n_t],
+                    uqe[:n_f], uqe[t0 : t0 + n_t], float(w.sum()))
+
+        args = compat_mi.tile_inputs(*host(F, T), rxy_compat=True, device=dev)
+        got = compat_mi.compat_mi_tile(*args)
+        exact = compat_mi.compat_mi_tile_reference(*args, dtype=torch.float64)
+        plain = compat_mi.compat_mi_tile_reference(*args)
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(got).all()):
+            raise RuntimeError(f"{tag}: non-finite output")
+        err = float((got.double() - exact).abs().max())
+        err32 = float((got - plain).abs().max())
+        err_plain = float((plain.double() - exact).abs().max())
+        del exact
+        sub = host(min(256, F), min(256, T))
+        k_sub = compat_mi.mi_tile_pallas(*sub, rxy_compat=True, device=dev)
+        oracle = mi_tile_numpy(*sub, rxy_compat=True)
+        err64 = float(np.abs(k_sub - oracle).max())
+        ms = cuda_time_ms(lambda: compat_mi.compat_mi_tile(*args), reps=5, warm=1)
+        plain_ms = cuda_time_ms(
+            lambda: compat_mi.compat_mi_tile_reference(*args), reps=2, warm=1)
+        lhs = torch.ones((4 * F, 3 * S), dtype=torch.bfloat16, device=dev)
+        rhs = torch.ones((4 * T, 3 * S), dtype=torch.bfloat16, device=dev)
+        library_ms = cuda_time_ms(lambda: torch.matmul(lhs, rhs.T), reps=5)
+        del lhs, rhs
+        # 16 counted planes (the fifth row / column by closure)
+        nbytes = S * (F + T) + 2 * 3 * S + 4 * (11 * (F + T)) + 8 * F * T
+        bound_ms, bound_by = bound(nbytes, 16 * 2.0 * F * T * 3 * S)
+        rows[(F, T)] = dict(max_abs_err=err, f32_plain_max_abs_err=err32,
+                            f64_max_abs_err=err64, ms=ms, plain_ms=plain_ms,
+                            library_ms=library_ms, bound_ms=bound_ms,
+                            bound_by=bound_by)
+        log(f"{tag}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bf16 matmul"
+            f" of the 16 planes {library_ms:.4f} ms, bound {bound_ms:.4f} ms"
+            f" ({bound_by}); max|kernel-plain64| {err:.2e} (f32 plain: kernel"
+            f" {err32:.2e}, plain {err_plain:.2e}), max|kernel-f64 oracle|"
+            f" {err64:.2e} ({k_sub.shape[0]}x{k_sub.shape[1]} sub-input)")
+        if err > ATOL_PLAIN:
+            raise RuntimeError(f"{tag}: kernel vs plain (f64) {err:.3e} > {ATOL_PLAIN}")
+        if not np.allclose(k_sub, oracle, rtol=RTOL_K3, atol=ATOL_K3):
+            raise RuntimeError(f"{tag}: kernel vs f64 oracle {err64:.3e}")
+        del args, got, plain
         torch.cuda.empty_cache()
     return rows
 
@@ -301,10 +577,10 @@ def check_tables(sr, lr):
 # --------------------------------------------------------------------------
 # 4. small input: card against the plain versions on the CPU
 # --------------------------------------------------------------------------
-def small_phase():
+def small_phase(backend):
     import ldweaver_tpu_torch
 
-    d = os.path.join(WORK, "small")
+    d = os.path.join(WORK, f"small_{backend}")
     os.makedirs(d)
     fa, pos, gbk = synth_snp_alignment(d, nseq=48, g=200_000, nsnp=3000, seed=1)
     out = {}
@@ -312,7 +588,7 @@ def small_phase():
         dset = os.path.join(d, dev)
         ldweaver_tpu_torch.ldweaver(
             dset=dset, aln_path=fa, aln_has_all_bases=False, pos=pos,
-            gbk_path=gbk, backend="spmd", max_blk_sz=1024,
+            gbk_path=gbk, backend=backend, max_blk_sz=1024,
             SnpEff_Annotate=False, device=dev, lr_retain_links=20000,
         )
         out[dev] = read_links(dset)
@@ -330,13 +606,13 @@ def small_phase():
     res = dict(sr_rows=len(sr_c), lr_rows=len(lr_c), sr_one_side=sr_only,
                lr_one_side=lr_only, sr_mi_max_abs_diff=sr_diff,
                lr_mi_max_abs_diff=lr_diff, sr_top10_equal=top10)
-    log(f"small input, card vs CPU: {json.dumps(res)}")
+    log(f"small input, backend={backend!r}, card vs CPU: {json.dumps(res)}")
     # the reference package's own CPU-vs-TPU spread (CHIP_PARITY_r05.json):
     # one-side rows at 2 per 970, MI within 1.2e-4, top-10 ranking equal
     if not (sr_only <= max(2, round(2 / 970 * len(sr_p)))
             and lr_only <= max(2, round(2 / 970 * len(lr_p)))
             and sr_diff <= 1.2e-4 and lr_diff <= 1.2e-4 and top10):
-        raise RuntimeError("card and CPU link tables disagree")
+        raise RuntimeError(f"backend={backend!r}: card and CPU link tables disagree")
     return res
 
 
@@ -379,30 +655,200 @@ def slice_phase():
     return launches, by_bucket
 
 
+def device_time_split(fn, top=6):
+    """Run fn once under torch.profiler: summed device time of its kernels
+    and the kernels that took the most device time.  The profiler slows
+    the host side several-fold, so compare the device time with an
+    unprofiled wall time, not with this call's."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.time()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall = time.time() - t0
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(
+            e, "self_cuda_time_total", 0)
+
+    events = [e for e in prof.key_averages() if dev_us(e) > 0]
+    total = sum(dev_us(e) for e in events) / 1e6
+    events.sort(key=dev_us, reverse=True)
+    split = [(e.key[:60], round(dev_us(e) / 1e3, 2), e.count) for e in events[:top]]
+    log(f"profiled call: wall {wall:.3f} s, device time {total:.3f} s;"
+        f" top kernels (name, ms, count): {split}")
+    return dict(profiled_wall_s=wall, device_busy_s=total)
+
+
+# --------------------------------------------------------------------------
+# 6. the LR-only sweep
+# --------------------------------------------------------------------------
+def lr_phase():
+    import torch
+
+    from ldweaver_tpu_torch.ops import fused_tile, rank_mi
+    from ldweaver_tpu_torch.parallel.fast_sweep import (
+        fast_lr_topk,
+        prepare_fast_sweep,
+    )
+
+    # card against CPU (plain versions) at 64 genomes x 16,384 SNPs
+    sd, w = bench_snp_data(16384, 64, seed=5)
+    res = {dev: fast_lr_topk(sd, w, block=2048, sr_dist=SR_DIST, topk=1024,
+                             device=dev) for dev in ("cuda", "cpu")}
+    keys = {dev: dict(zip(zip(r[0].tolist(), r[1].tolist()), r[2].tolist()))
+            for dev, r in res.items()}
+    kth = min(res["cuda"][2][-1], res["cpu"][2][-1])
+    one_side = set(keys["cuda"]) ^ set(keys["cpu"])
+    far = [k for k in one_side
+           if keys["cuda"].get(k, keys["cpu"].get(k)) - kth > NEAR_TIE]
+    common = set(keys["cuda"]) & set(keys["cpu"])
+    diff = max(abs(keys["cuda"][k] - keys["cpu"][k]) for k in common)
+    log(f"LR sweep, card vs CPU (64 x 16,384, block 2048, top-k 1024):"
+        f" {len(one_side)} pairs on one side only ({len(far)} beyond a near-tie"
+        f" at the k-th value), MI max abs diff {diff:.2e}")
+    if far or diff > 1.2e-4 or len(res["cuda"][2]) != 1024:
+        raise RuntimeError("LR sweep: card and CPU top-k disagree")
+
+    # the bench.py sweep leg
+    t0 = time.time()
+    sd, w = bench_snp_data(131072, 1024, seed=0)
+    log(f"LR sweep input (bench synth 131,072 x 1024) in {time.time() - t0:.1f} s")
+    t0 = time.time()
+    state = prepare_fast_sweep(sd, w, block=4096, device="cuda")
+    torch.cuda.synchronize()
+    prep_s = time.time() - t0
+    tiles = {k: len(v) for k, v in state.buckets.items()}
+    n22 = tiles.get((2, 2, True), 0)
+    log(f"LR sweep prepared in {prep_s:.1f} s; tiles per bucket {tiles}")
+    t0 = time.time()
+    fast_lr_topk(sr_dist=SR_DIST, topk=1024, state=state)
+    warm_s = time.time() - t0
+    walls = []
+    for _ in range(5):
+        rank_mi.K1.reset()
+        fused_tile.K2.reset()
+        t0 = time.time()
+        pos1, pos2, mi = fast_lr_topk(sr_dist=SR_DIST, topk=1024, state=state)
+        walls.append(time.time() - t0)
+        k1, k1_by_bucket, k2 = (rank_mi.K1.launches, dict(rank_mi.K1.by_bucket),
+                                fused_tile.K2.launches)
+        if not (mi.size == 1024 and np.isfinite(mi).all()
+                and np.all(np.diff(mi) <= 0) and (pos1 != pos2).all()):
+            raise RuntimeError("LR sweep: malformed top-k")
+        if k2 != n22 or k1 + k2 != sum(tiles.values()):
+            raise RuntimeError(f"LR sweep: K2 launched {k2} times for {n22}"
+                               f" (2,2,pure) tiles, K1 {k1} times")
+    median = float(np.median(walls))
+    pairs = sd.nsnp * (sd.nsnp - 1) // 2
+    busy = device_time_split(
+        lambda: fast_lr_topk(sr_dist=SR_DIST, topk=1024, state=state))
+    out = dict(warm_s=warm_s, walls_s=walls, median_s=median,
+               pairs_per_s=pairs / median, k1_launches=k1, k2_launches=k2,
+               top_mi=float(mi[0]), kth_mi=float(mi[-1]), **busy)
+    log(f"LR sweep (131,072 SNPs x 1024 genomes, block 4096, top-k 1024):"
+        f" warm {warm_s:.2f} s, timed {[round(x, 3) for x in walls]} s, median"
+        f" {median:.3f} s = {pairs / median:.4g} pairs/s; per call K2 {k2}"
+        f" launches, K1 {k1} {k1_by_bucket}; device time"
+        f" {busy['device_busy_s']:.3f} s = {100 * busy['device_busy_s'] / median:.0f}%"
+        f" of the median wall")
+    del state
+    torch.cuda.empty_cache()
+    return out, k1_by_bucket
+
+
+# --------------------------------------------------------------------------
+# 7. the compat path
+# --------------------------------------------------------------------------
+def compat_phase():
+    import torch
+
+    import ldweaver_tpu_torch
+    from ldweaver_tpu_torch.ops import compat_mi
+
+    d = os.path.join(WORK, "compat")
+    os.makedirs(d)
+    fa, pos, gbk = synth_snp_alignment(d, nseq=616, g=2_200_000, nsnp=8192, seed=2)
+    dset = os.path.join(d, "ldw_out")
+    compat_mi.K3.reset()
+    t0 = time.time()
+    ldweaver_tpu_torch.ldweaver(
+        dset=dset, aln_path=fa, aln_has_all_bases=False, pos=pos,
+        gbk_path=gbk, backend="pallas", max_blk_sz=4000,
+        SnpEff_Annotate=False, device="cuda",
+    )
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = compat_mi.K3.launches
+    by_shape = dict(compat_mi.K3.by_bucket)
+    timings = json.load(open(os.path.join(dset, "timings.json")))
+    sr, lr = read_links(dset)
+    check_tables(sr, lr)
+    log(f"compat wall {wall:.1f} s; timings.json: {json.dumps(timings)}")
+    log(f"compat: sr rows {len(sr)}, lr rows {len(lr)}, K3 launches {launches}"
+        f" by tile shape {by_shape}")
+    if launches < 6 or by_shape.get((K3_F, K3_F), 0) != 3:
+        raise RuntimeError(f"K3 launched {launches} times ({by_shape}) for 6 tiles")
+    return by_shape
+
+
 def main():
     name, smi = probe()
     if os.path.exists(WORK):
         shutil.rmtree(WORK)
     os.makedirs(WORK)
     build()
-    rows = kernel_phase()
-    small_phase()
+    k1_slice = kernel_phase(S, BUCKETS, seed=20261016)
+    k1_lr = kernel_phase(K2_S, LR_BUCKETS, seed=20261018)
+    k2_row = fused_phase()
+    k3_rows = compat_kernel_phase()
+    small_phase("spmd")
+    small_phase("pallas")
+    small_phase("jax")
     launches, by_bucket = slice_phase()
+    lr, lr_k1 = lr_phase()
+    k3_by_shape = compat_phase()
     kernels = []
-    for (Rf, Rt, pure), row in rows.items():
+    # K1 at the spmd slice's S = 616 and the LR sweep's S = 1024, each row
+    # with the launches of the path that runs the kernel at that shape
+    for rows, path_launches, path in ((k1_slice, by_bucket, "spmd slice"),
+                                      (k1_lr, lr_k1, "LR sweep")):
+        unmeasured = set(path_launches) - set(rows)
+        if unmeasured:
+            raise RuntimeError(f"K1 launched on the {path} in buckets not"
+                               f" measured at its shape: {sorted(unmeasured)}")
+        for (Rf, Rt, pure), row in rows.items():
+            kernels.append(dict(
+                name=(f"rank_mi_tile[Rf={Rf},Rt={Rt},"
+                      f"{'pure' if pure else 'general'},S={row['S']}]"),
+                route="cuda",
+                source="ldweaver_tpu_torch/csrc/rank_mi.cu",
+                replaces=("ldweaver_tpu/parallel/fast_sweep.py:223" if pure
+                          else "ldweaver_tpu/ops/pallas_rank_mi.py:23"),
+                launches=path_launches.get((Rf, Rt, pure), 0),
+                **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms")},
+            ))
+    kernels.append(dict(
+        name="fused_tile_stage1[Rf=2,Rt=2,pure,S=1024]", route="cuda",
+        source="ldweaver_tpu_torch/csrc/fused_tile.cu",
+        replaces="ldweaver_tpu/ops/pallas_fused_tile.py:42",
+        launches=lr["k2_launches"], **k2_row,
+    ))
+    unmeasured = set(k3_by_shape) - set(k3_rows)
+    if unmeasured:
+        raise RuntimeError(f"K3 launched at tile shapes not measured: {sorted(unmeasured)}")
+    for (F, T), row in k3_rows.items():
         kernels.append(dict(
-            name=f"rank_mi_tile[Rf={Rf},Rt={Rt},{'pure' if pure else 'general'}]",
-            route="cuda",
-            source="ldweaver_tpu_torch/csrc/rank_mi.cu",
-            replaces=("ldweaver_tpu/parallel/fast_sweep.py:223" if pure
-                      else "ldweaver_tpu/ops/pallas_rank_mi.py:23"),
-            launches=by_bucket.get((Rf, Rt, pure), 0),
-            max_abs_err=row["max_abs_err"], ms=row["ms"],
-            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
-            bound_by=row["bound_by"], library_ms=row["library_ms"],
+            name=f"compat_mi_tile[{F}x{T},S={S}]", route="cuda",
+            source="ldweaver_tpu_torch/csrc/compat_mi.cu",
+            replaces="ldweaver_tpu/ops/pallas_mi.py:28",
+            launches=k3_by_shape.get((F, T), 0),
+            **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                   "bound_by", "library_ms")},
         ))
-    if sum(k["launches"] for k in kernels) != launches:
-        raise RuntimeError(f"the slice launched K1 in a bucket not measured: {by_bucket}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     import torch

@@ -65,12 +65,16 @@ def neighbour_counts(codes: torch.Tensor, nsnp: int, npad: int,
 
 
 def estimate_hamming_distance_weights(
-    snp_data, threshold: float = 0.1, backend: str = "spmd",
+    snp_data, threshold: float = 0.1, backend: str = "jax",
     max_blk_sz: int = 10000, n_devices=None, device="cuda",
 ) -> np.ndarray:
-    """BLK4: the Hamming weights of every sequence, computed on `device`
-    from the r-stratified rank codes of the BLK5 tile size."""
+    """BLK4: the Hamming weights of every sequence.  backend="numpy" takes
+    the float64 host oracle; every other backend computes them on `device`
+    from the r-stratified rank codes of the BLK5 tile size (exact integer
+    counts, so the weights are bit-equal across backends)."""
     check_supported(backend=backend, n_devices=n_devices)
+    if backend == "numpy":
+        return hamming_weights_numpy(snp_data.codes, threshold)
     device = resolve_device(device)
     block = fast_block_size(snp_data.nsnp, max_blk_sz)
     ranked = stratify(

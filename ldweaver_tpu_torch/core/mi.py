@@ -11,8 +11,10 @@ n_X(f) = sum_s hdw[s]*1[allele X at site f in seq s]:
                 (n_X*n_Y + RXY + 0.5*n_X*r_f + 0.5*n_Y*r_t) )
 
 (reference: R/computePairwiseMI.R:46-398, src/computeMI.cpp:11-21).  The
-device tile lives in parallel/fast_sweep.py and ops/rank_mi.py; this module
-holds only NumPy code, copied from the JAX package's host parts.
+rank-compacted device tile lives in parallel/fast_sweep.py and
+ops/rank_mi.py, the compat kernel tile in ops/compat_mi.py.  This module
+holds the NumPy host parts, copied from the JAX package's, and
+`mi_tile_jax`, the PyTorch counterpart of its XLA compat tile.
 Reference quirks replicated in `mi_tile_numpy` and `rxy_term`:
   * the marginal pseudocounts pair n_X with its OWN site's r
     (R/computePairwiseMI.R:262-263,393-394);
@@ -28,6 +30,9 @@ from typing import Sequence
 
 import numpy as np
 
+import torch
+
+from ldweaver_tpu_torch.support import resolve_device
 from ldweaver_tpu_torch.utils.r_compat import RRandomState
 
 _F64 = np.float64
@@ -127,6 +132,99 @@ def mi_tile_numpy(
             uq = np.outer(uq_f[:, x], uq_t[:, y]).astype(_F64)
             mi += uq * pxy / den * np.log(pxy / denom * den)
     return mi
+
+
+# --------------------------------------------------------------------------
+# PyTorch compat tile (the JAX package's XLA tile; the kernel tile of
+# backend="pallas" lives in ops/compat_mi.py)
+# --------------------------------------------------------------------------
+def mi_tile_jax(
+    codes_f,
+    codes_t,
+    w,
+    r_f,
+    r_t,
+    uq_f,
+    uq_t,
+    neff,
+    rxy_compat: bool = True,
+    device="cuda",
+) -> np.ndarray:
+    """The compat MI tile in float32 on `device` -> [F, T] float64, op for
+    op as the JAX package's `mi_tile_jax`: 25 f32 products at full f32
+    precision (TF32 off, as `resolve_device` sets it for every CUDA device:
+    the counterpart of XLA's Precision.HIGHEST), then the epilogue.  The
+    products are plain matrix products outside any
+    kernel, so they go to torch.matmul."""
+    dev = resolve_device(device)
+    f32 = torch.float32
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    cf = t(codes_f)
+    ct = t(codes_t)
+    w32 = t(np.asarray(w, np.float32))
+    rf32 = t(np.asarray(r_f, np.float32))
+    rt32 = t(np.asarray(r_t, np.float32))
+    uqf = t(np.asarray(uq_f, np.float32))
+    uqt = t(np.asarray(uq_t, np.float32))
+    rxy = t(rxy_term(r_f, r_t, compat=rxy_compat).astype(np.float32))
+    neff32 = torch.tensor(np.float32(neff), dtype=f32, device=dev)
+    wXf = [(cf == a).to(f32) * w32 for a in range(5)]
+    Yt = [(ct == a).to(f32) for a in range(5)]
+    pX = [m.sum(dim=1) for m in wXf]
+    pY = [(y * w32).sum(dim=1) for y in Yt]
+    den = neff32 + 0.5 * torch.outer(rf32, rt32)
+    mi = torch.zeros((cf.shape[0], ct.shape[0]), dtype=f32, device=dev)
+    for x in range(5):
+        pxr = pX[x] * (0.5 * rf32)
+        for y in range(5):
+            pxy = wXf[x] @ Yt[y].T + 0.5
+            denom = (
+                torch.outer(pX[x], pY[y])
+                + rxy
+                + pxr[:, None]
+                + (pY[y] * (0.5 * rt32))[None, :]
+            )
+            uq = torch.outer(uqf[:, x], uqt[:, y])
+            mi = mi + uq * pxy / den * torch.log(pxy / denom * den)
+    return mi.cpu().numpy().astype(_F64)
+
+
+# --------------------------------------------------------------------------
+# Triangular pair extraction (column-major, as R `which(..., arr.ind=T)`)
+# --------------------------------------------------------------------------
+def tile_pair_indices(F: int, T: int, diagonal_block: bool):
+    """(rows, cols) of emitted pairs, in the reference's emission order.
+
+    Diagonal blocks: lower triangle i>j, column-major
+    (R/computePairwiseMI.R:307).  Off-diagonal blocks: upper triangle then
+    lower triangle, each column-major; in-block diagonal dropped
+    (R/computePairwiseMI.R:309 - a reference quirk kept for parity).
+    """
+    if diagonal_block:
+        # column-major over (i > j)
+        cols, rows = np.meshgrid(np.arange(T), np.arange(F), indexing="xy")
+        mask = rows > cols
+        order = np.flatnonzero(mask.T.ravel())  # column-major enumeration
+        j, i = np.unravel_index(order, (T, F))
+        return i, j
+    iu = []
+    ju = []
+    # upper.tri: i < j, column-major
+    m = np.arange(F)[:, None] < np.arange(T)[None, :]
+    order = np.flatnonzero(m.T.ravel())
+    j, i = np.unravel_index(order, (T, F))
+    iu.append(i)
+    ju.append(j)
+    # lower.tri: i > j, column-major
+    m2 = np.arange(F)[:, None] > np.arange(T)[None, :]
+    order2 = np.flatnonzero(m2.T.ravel())
+    j2, i2 = np.unravel_index(order2, (T, F))
+    iu.append(i2)
+    ju.append(j2)
+    return np.concatenate(iu), np.concatenate(ju)
 
 
 # --------------------------------------------------------------------------

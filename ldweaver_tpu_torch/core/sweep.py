@@ -1,26 +1,160 @@
 """Blocked all-vs-all MI sweep driver (reference `perform_MI_computation`,
 R/computePairwiseMI.R:46-145 + per-block `perform_MI_computation_ACGTN`,
-R/computePairwiseMI.R:167-386), backend "spmd": the tile sweep runs on
-one device (parallel/spmd_sweep.py), the background model, ARACNE and the
-TSV writers on the host.
+R/computePairwiseMI.R:167-386).
+
+backend "spmd": the r-stratified tile sweep runs on one device
+(parallel/spmd_sweep.py).  The compat backends "jax", "pallas" and
+"numpy" walk the reference's contiguous `make_blocks` tiling with one MI
+tile per block pair (`sweep_block_pair`): "numpy" the float64 oracle on
+the host, "jax" the f32 PyTorch tile (`core/mi.mi_tile_jax`), "pallas"
+kernel K3 (`ops/compat_mi.mi_tile_pallas`); link extraction is host code.
+The background model, ARACNE and the TSV writers run on the host.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 import time
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 import numpy as np
 
 from ldweaver_tpu_torch.core.aracne import run_aracne
 from ldweaver_tpu_torch.core.background import merge_and_sort_sr_links
-from ldweaver_tpu_torch.core.mi import LinkTable, circular_len, estimate_lr_links
+from ldweaver_tpu_torch.core import mi as mi_mod
+from ldweaver_tpu_torch.core.mi import (
+    LinkTable,
+    circular_len,
+    estimate_lr_links,
+    make_blocks,
+    round_blk_sz,
+    tile_pair_indices,
+)
 from ldweaver_tpu_torch.core.snp_tensor import SnpData
 from ldweaver_tpu_torch.io.writers import append_tsv_rows, format_float
+from ldweaver_tpu_torch.ops.compat_mi import mi_tile_pallas
 from ldweaver_tpu_torch.parallel.spmd_sweep import blk5_sweep, fast_block_size
 from ldweaver_tpu_torch.support import check_supported, resolve_device
 from ldweaver_tpu_torch.utils.r_compat import quantile_type7
+
+
+def _tile_backend(backend: str, device) -> Callable:
+    if backend == "numpy":
+        return mi_mod.mi_tile_numpy
+    if backend == "jax":
+        return functools.partial(mi_mod.mi_tile_jax, device=device)
+    if backend == "pallas":
+        return functools.partial(mi_tile_pallas, device=device)
+    raise ValueError(f"unknown MI backend {backend!r}")
+
+
+def sweep_block_pair(
+    snp_data: SnpData,
+    hdw: np.ndarray,
+    paint: np.ndarray,
+    neff: float,
+    fs: int,
+    fe: int,
+    ts: int,
+    te: int,
+    sr_dist: int,
+    lr_retain_links: float,
+    lr_links_approx: Optional[float],
+    sr_links: List[LinkTable],
+    lr_rows_sink: Callable,
+    backend: str = "jax",
+    rxy_compat: bool = True,
+    perform_sr_only: bool = False,
+    device="cuda",
+):
+    """One block-pair: MI tile + SR/LR link extraction
+    (R/computePairwiseMI.R:167-386).  fs/fe/ts/te are 1-based inclusive.
+    """
+    g = snp_data.g
+    from_idx = np.arange(fs - 1, fe, dtype=np.int64)
+    to_idx = np.arange(ts - 1, te, dtype=np.int64)
+    pos = snp_data.pos
+
+    if perform_sr_only:
+        # drop sites forming no short-range pair (strict <, :182-183)
+        pf = pos[from_idx].astype(np.float64)
+        pt = pos[to_idx].astype(np.float64)
+        lens_ft = 0.5 * g - np.abs(
+            np.mod(pt[None, :] - pf[:, None], g) - 0.5 * g
+        )
+        kp_f = (np.abs(lens_ft) < sr_dist).any(axis=1)
+        kp_t = (np.abs(lens_ft) < sr_dist).any(axis=0)
+        from_idx = from_idx[kp_f]
+        to_idx = to_idx[kp_t]
+        if from_idx.size == 0 or to_idx.size == 0:
+            return
+
+    pos_f = pos[from_idx]
+    pos_t = pos[to_idx]
+    paint_f = paint[from_idx]
+    paint_t = paint[to_idx]
+    r_f = snp_data.r[from_idx]
+    r_t = snp_data.r[to_idx]
+    uq_f = snp_data.uqe[from_idx]
+    uq_t = snp_data.uqe[to_idx]
+    codes_f = np.ascontiguousarray(snp_data.codes[:, from_idx].T)
+    codes_t = np.ascontiguousarray(snp_data.codes[:, to_idx].T)
+
+    tile_fn = _tile_backend(backend, device)
+    mi = tile_fn(
+        codes_f, codes_t, hdw, r_f, r_t, uq_f, uq_t, neff, rxy_compat=rxy_compat
+    )
+    mi = np.asarray(mi, dtype=np.float64)
+
+    diagonal_block = fs == ts and fe == te
+    ii, jj = tile_pair_indices(from_idx.size, to_idx.size, diagonal_block)
+    if ii.size == 0:
+        return
+
+    pos2 = pos_f[ii]
+    pos1 = pos_t[jj]  # orientation per R/computePairwiseMI.R:319-320
+    clust2 = paint_f[ii]
+    clust1 = paint_t[jj]
+    lens = circular_len(pos1, pos2, g)  # :330
+    vals = mi[ii, jj]
+
+    sr_mask = lens <= sr_dist  # :333
+    lr_mask = ~sr_mask
+
+    if lr_mask.any() and not perform_sr_only:
+        lrv = vals[lr_mask]
+        prob = max(
+            0.0, 1.0 - lr_retain_links / lr_links_approx
+        )  # :352 (block factors cancel)
+        disc_thresh = quantile_type7(lrv, prob)
+        keep = lrv >= disc_thresh  # :358
+        if keep.any():
+            sel = np.flatnonzero(lr_mask)[keep]
+            lr_rows_sink(
+                pos1[sel],
+                pos2[sel],
+                clust1[sel],
+                clust2[sel],
+                lens[sel],
+                vals[sel],
+            )
+
+    if sr_mask.any():
+        sel = np.flatnonzero(sr_mask)
+        t = LinkTable(
+            pos1=pos1[sel],
+            pos2=pos2[sel],
+            clust1=clust1[sel],
+            clust2=clust2[sel],
+            len=lens[sel],
+            MI=vals[sel],
+        )
+        nclust = len(sr_links)
+        for ci in range(1, nclust + 1):
+            m = (t.clust1 == ci) | (t.clust2 == ci)  # .compareToRow, :373
+            if m.any():
+                sr_links[ci - 1].append(t.take(np.flatnonzero(m)))
 
 
 def _emit_pairs(
@@ -86,7 +220,8 @@ def perform_mi_computation(
     run_aracne_flag: bool = True,
     perform_sr_analysis_only: bool = False,
     order_links: bool = True,
-    backend: str = "spmd",
+    backend: str = "jax",
+    rxy_compat: bool = True,
     r_compat_sampling: bool = True,
     verbose: bool = True,
     checkpoint_dir: Optional[str] = None,
@@ -100,20 +235,24 @@ def perform_mi_computation(
     Returns the reduced short-range link table (SrLinks with ARACNE column),
     like the reference returns sr_links_red (R/computePairwiseMI.R:143).
     phase_timings, if given a dict, is filled with the wall-clock split
-    (sweep / background fit / aracne / sr write, plus the sweep's tile
-    stats)."""
+    (sweep / background fit / aracne / sr write, plus the spmd sweep's
+    tile stats).  rxy_compat selects the reference's RXY alias on the
+    compat backends."""
     check_supported(
         backend=backend, n_devices=n_devices, sr_reduce=sr_reduce,
         checkpoint_dir=checkpoint_dir,
     )
     device = resolve_device(device)
-    if sr_reduce == "auto":
+    if backend == "spmd" and sr_reduce == "auto":
         print(
             "sr_reduce='auto': the SR background model reduces on the host"
             " (the on-device reduction is ROADMAP.md item 7)"
         )
     t000 = time.time()
+    # the reference rounds the block size to a 1000-multiple (:69); that
+    # shapes only the compat tiling, the spmd tile keeps max_blk_sz
     fast_blk = fast_block_size(snp_data.nsnp, max_blk_sz)
+    blocks = make_blocks(snp_data.nsnp, round_blk_sz(max_blk_sz))
     nclust = cds_var.nclust
     # per-cluster PART lists (concatenated once after the sweep: a
     # concat per block would be quadratic in total links)
@@ -167,23 +306,52 @@ def perform_mi_computation(
                 )
             )
 
-    stats = blk5_sweep(
-        snp_data,
-        np.asarray(hdw, dtype=np.float64),
-        cds_var.paint,
-        neff,
-        sr_dist,
-        lr_retain_links,
-        None if perform_sr_analysis_only else lr_links_approx,
-        sr_links,
-        lr_sink,
-        block=fast_blk,
-        device=device,
-        perform_sr_only=perform_sr_analysis_only,
-        verbose=verbose,
-    )
-    if phase_timings is not None:
-        phase_timings["spmd"] = stats
+    if backend == "spmd":
+        stats = blk5_sweep(
+            snp_data,
+            np.asarray(hdw, dtype=np.float64),
+            cds_var.paint,
+            neff,
+            sr_dist,
+            lr_retain_links,
+            None if perform_sr_analysis_only else lr_links_approx,
+            sr_links,
+            lr_sink,
+            block=fast_blk,
+            device=device,
+            perform_sr_only=perform_sr_analysis_only,
+            verbose=verbose,
+        )
+        if phase_timings is not None:
+            phase_timings["spmd"] = stats
+    else:
+        for bi in range(blocks.shape[0]):
+            t0 = time.time()
+            fs, fe, ts, te = (int(v) for v in blocks[bi])
+            sweep_block_pair(
+                snp_data,
+                np.asarray(hdw, dtype=np.float64),
+                cds_var.paint,
+                neff,
+                fs,
+                fe,
+                ts,
+                te,
+                sr_dist,
+                lr_retain_links,
+                lr_links_approx,
+                sr_links,
+                lr_sink,
+                backend=backend,
+                rxy_compat=rxy_compat,
+                perform_sr_only=perform_sr_analysis_only,
+                device=device,
+            )
+            if verbose:
+                print(
+                    f"Block {bi + 1} of {blocks.shape[0]} ... "
+                    f"done in {time.time() - t0:.2f} s"
+                )
 
     _t_sweep_end = time.time()
     sr_tables = [LinkTable.concat(parts) for parts in sr_links]

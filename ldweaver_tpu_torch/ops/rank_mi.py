@@ -32,7 +32,7 @@ N_TERMS = 3
 
 class LaunchCounter:
     """Kernel launches made through the wrapper: a plain integer, and the
-    same count split by bucket (Rf, Rt, pure)."""
+    same count split by bucket (K1: (Rf, Rt, pure); K3: the tile shape)."""
 
     def __init__(self) -> None:
         self.launches = 0
@@ -115,17 +115,20 @@ def rank_mi_tile(codes, fs: int, ts: int, nf: int, nt: int, wparts, px, py,
 
 def rank_mi_tile_reference(codes, fs: int, ts: int, nf: int, nt: int, wparts,
                            px, py, r_f, r_t, neff: float, Rf: int, Rt: int,
-                           pure: bool) -> torch.Tensor:
+                           pure: bool, dtype=torch.float32) -> torch.Tensor:
     """Plain PyTorch K1, op for op as `fast_sweep._rank_tile_mi` of the JAX
     package: per (x, y) rank pair one product of the [nf, 3S] weighted
     one-hot (the three bf16 terms side by side) with the [nt, 3S] one-hot,
     in f32 (bf16 values are exact in f32, so this equals a bf16 product
-    with f32 accumulation), then marginal closure and the epilogue."""
-    f32 = torch.float32
+    with f32 accumulation), then marginal closure and the epilogue.  With
+    dtype=torch.float64 every step runs in float64 instead: the exact
+    tile of the same inputs, which a kernel is held against on the card."""
     dev = codes.device
     cf = codes[:, fs : fs + nf].T
     ct = codes[:, ts : ts + nt].T
-    neff_t = torch.tensor(neff, dtype=f32, device=dev)
+    neff_t = torch.tensor(neff, dtype=dtype, device=dev)
+    px, py = px.to(dtype), py.to(dtype)
+    r_f, r_t = r_f.to(dtype), r_t.to(dtype)
     pX = [px[x] for x in range(Rf)]
     pY = [py[y] for y in range(Rt)]
 
@@ -138,10 +141,10 @@ def rank_mi_tile_reference(codes, fs: int, ts: int, nf: int, nt: int, wparts,
         for x in range(Rf):
             counts[(x, 0)] = pX[x][:, None].expand(nf, nt)
     else:
-        wp = wparts.to(f32)
-        zero = torch.zeros((), dtype=f32, device=dev)
+        wp = wparts.to(dtype)
+        zero = torch.zeros((), dtype=dtype, device=dev)
         rhs_cat = [
-            torch.cat([(ct == y).to(f32)] * N_TERMS, dim=1)
+            torch.cat([(ct == y).to(dtype)] * N_TERMS, dim=1)
             for y in range(Rt - 1)
         ]
         for x in range(Rf - 1):
@@ -169,16 +172,16 @@ def rank_mi_tile_reference(codes, fs: int, ts: int, nf: int, nt: int, wparts,
         den_s = neff_t + 0.5 * Rf * Rt
         logden = torch.log(den_s)
         invden = 1.0 / den_s
-        ent = torch.zeros((nf, nt), dtype=f32, device=dev)
+        ent = torch.zeros((nf, nt), dtype=dtype, device=dev)
         for x in range(Rf):
             for y in range(Rt):
                 pxy = counts[(x, y)] + 0.5
                 ent = ent + pxy * torch.log(pxy)
-        lx = torch.zeros((nf,), dtype=f32, device=dev)
+        lx = torch.zeros((nf,), dtype=dtype, device=dev)
         for x in range(Rf):
             px_s = pX[x] + 0.5 * Rt
             lx = lx + torch.log(px_s) * px_s
-        ly = torch.zeros((nt,), dtype=f32, device=dev)
+        ly = torch.zeros((nt,), dtype=dtype, device=dev)
         for y in range(Rt):
             py_s = pY[y] + 0.5 * Rf
             ly = ly + torch.log(py_s) * py_s
@@ -187,9 +190,9 @@ def rank_mi_tile_reference(codes, fs: int, ts: int, nf: int, nt: int, wparts,
     rr = torch.outer(r_f, r_t)
     den = neff_t + 0.5 * rr
     rxy = 0.25 * rr
-    mi = torch.zeros((nf, nt), dtype=f32, device=dev)
+    mi = torch.zeros((nf, nt), dtype=dtype, device=dev)
     for x in range(Rf):
-        gate_x = (x < r_f).to(f32)
+        gate_x = (x < r_f).to(dtype)
         pxr = pX[x] * (0.5 * r_f)
         for y in range(Rt):
             pxy = counts[(x, y)] + 0.5
@@ -199,6 +202,6 @@ def rank_mi_tile_reference(codes, fs: int, ts: int, nf: int, nt: int, wparts,
                 + pxr[:, None]
                 + (pY[y] * (0.5 * r_t))[None, :]
             )
-            uq = torch.outer(gate_x, (y < r_t).to(f32))
+            uq = torch.outer(gate_x, (y < r_t).to(dtype))
             mi = mi + uq * pxy / den * torch.log(pxy / denom * den)
     return mi

@@ -17,16 +17,30 @@ count plane and 4 log terms.  `RankedSnps`, `rank_encode` and `stratify`
 are NumPy copies of the JAX package's; `wparts` and `rank_tile_mi` are the
 PyTorch counterparts of its `_wparts` and `_rank_tile_mi`, the tile itself
 coming from kernel K1 (ops/rank_mi.py).
+
+The LR-only sweep (`prepare_fast_sweep`, `fast_lr_topk`; the sweep leg of
+the JAX package's bench.py) keeps the rank codes resident on one device
+and walks every block pair bucket by bucket, folding each tile's two-stage
+LR top-k into a running per-bucket top-k, then merges the buckets.
+(2, 2, pure) tiles wider than 1024 columns go through kernel K2
+(ops/fused_tile.py: tile, LR mask and 128-column chunk max in one pass);
+every other tile through K1, the mask in torch ops and `tile_lr_topk`.
+Top-k keeps the lowest index among equal values, as `lax.top_k` does
+(stable sorts), and buckets are visited in the JAX package's order, so the
+merge breaks ties as it does.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ldweaver_tpu_torch.ops.fused_tile import CHUNK, chunk_max, fused_tile_stage1
 from ldweaver_tpu_torch.ops.rank_mi import N_TERMS, rank_mi_tile
+from ldweaver_tpu_torch.support import check_supported, resolve_device
 
 
 # --------------------------------------------------------------------------
@@ -166,3 +180,246 @@ def rank_tile_mi(codes, fs: int, ts: int, nf: int, nt: int, w32, parts,
     return rank_mi_tile(
         codes, fs, ts, nf, nt, parts, px, py, r_f, r_t, neff, Rf, Rt, pure,
     )
+
+
+# --------------------------------------------------------------------------
+# The LR-only sweep
+# --------------------------------------------------------------------------
+def top_k(values: torch.Tensor, k: int):
+    """(values, indices) of the k largest entries of a 1-D tensor in
+    descending order, the lowest index first among equal values (the tie
+    rule of `lax.top_k`; torch.topk promises no order)."""
+    srt, order = torch.sort(-values, stable=True)
+    return -srt[:k], order[:k]
+
+
+def chunk_topk(c_vals, cols, block_t: int, topk: int):
+    """Stage 2 of the chunked top-k: the flat top-k over the [Bf, nch]
+    chunk maxima -> (vals, flat in-tile indices i * block_t + j).  Pad-only
+    chunks are all -inf; their column is clamped so the flat index stays in
+    range (fast_sweep.py:298-300)."""
+    block_f, nch = c_vals.shape
+    rows = torch.arange(block_f, device=c_vals.device)[:, None]
+    flat = rows * block_t + torch.clamp(cols, max=block_t - 1)
+    vals, sel = top_k(c_vals.reshape(-1), min(topk, block_f * nch))
+    return vals, flat.reshape(-1)[sel].to(torch.int32)
+
+
+def tile_masks(pos_f, pos_t, val_f, val_t, same_block: bool, g: int,
+               sr_dist: int):
+    """(sr_ok, lr_ok), bool [nf, nt], of one tile: both sites valid, the
+    triangle i > j on a diagonal block pair, and the f32 circular length
+    0.5g - |d - 0.5g| (branchless d = diff + (diff < 0) * g) at most /
+    above sr_dist.  Computed exactly as the JAX package does
+    (fast_sweep.py:451-463, spmd_sweep.py:239-248), so the SR/LR split
+    agrees with it bit for bit; every sweep of the port masks through
+    here."""
+    dev = pos_f.device
+    f32 = torch.float32
+    ok = val_f[:, None] & val_t[None, :]
+    if same_block:
+        ar_f = torch.arange(pos_f.numel(), device=dev)
+        ar_t = torch.arange(pos_t.numel(), device=dev)
+        ok = ok & (ar_f[:, None] > ar_t[None, :])
+    diff = pos_t[None, :] - pos_f[:, None]
+    d = torch.where(diff < 0, diff + g, diff)
+    half_g = torch.tensor(0.5 * g, dtype=f32, device=dev)
+    lens = half_g - torch.abs(d.to(f32) - half_g)
+    return ok & (lens <= sr_dist), ok & (lens > sr_dist)
+
+
+def two_stage_topk(masked, k_row: int, k: int):
+    """Exact top-k of a masked [nf, nt] tile when no row holds more than
+    k_row of it: each row's k_row largest by a stable sort, then a stable
+    sort of the survivors -> (vals, flat idx i * nt + j), at most k of
+    them, the lowest flat index first among equal values (`lax.top_k`)."""
+    nf, nt = masked.shape
+    srt, order = torch.sort(-masked, dim=1, stable=True)
+    row_vals = -srt[:, :k_row]
+    flat = torch.arange(nf, device=masked.device)[:, None] * nt + order[:, :k_row]
+    vals, sel = top_k(row_vals.reshape(-1), min(k, row_vals.numel()))
+    return vals, flat.reshape(-1)[sel]
+
+
+def tile_lr_topk(masked, block_f: int, block_t: int, topk: int):
+    """Two-stage top-k of a masked [Bf, Bt] tile -> (vals, flat idx), the
+    counterpart of `_tile_lr_topk` (fast_sweep.py:259-302): per-row top-k
+    first for tiles up to 1024 columns, else the max and first argmax of
+    every 128-wide chunk (-inf padding for a non-multiple of 128), then
+    the flat top-k over the survivors."""
+    if block_t <= 1024:
+        vals, idx = two_stage_topk(masked, min(64, block_t, topk), topk)
+        return vals, idx.to(torch.int32)
+    pad = (-block_t) % CHUNK
+    if pad:
+        masked = torch.nn.functional.pad(masked, (0, pad), value=float("-inf"))
+    c_vals, cols = chunk_max(masked)
+    return chunk_topk(c_vals, cols, block_t, topk)
+
+
+@dataclasses.dataclass
+class FastSweepState:
+    """One-time preparation of the LR-only sweep on one device: the
+    stratified rank codes and per-site arrays resident there
+    (spmd_sweep.DeviceInputs), the allele-rank marginals of every block,
+    and the block pairs bucketed by (Rf, Rt, both-blocks-pure).  Prepare
+    once, sweep many."""
+
+    ranked: RankedSnps
+    buckets: Dict[Tuple[int, int, bool], List[Tuple[int, int]]]
+    dev: object  # spmd_sweep.DeviceInputs
+    marg: torch.Tensor  # [nb, 5, block] f32 weighted rank counts
+    block: int
+    g: int
+
+
+def prepare_fast_sweep(
+    snp_data,
+    hdw: np.ndarray,
+    block: int = 4096,
+    n_devices: Optional[int] = None,
+    hbm_budget_bytes: Optional[int] = None,
+    device="cuda",
+) -> FastSweepState:
+    """Rank-encode + stratify + move the SNP tensor to `device`.
+
+    One device, resident codes only: `n_devices > 1` and a budget under
+    which the JAX package would stream slabs (slabs.would_stream) raise
+    NotImplementedError naming their ROADMAP items."""
+    from ldweaver_tpu_torch.parallel.slabs import auto_budget, would_stream
+    from ldweaver_tpu_torch.parallel.spmd_sweep import device_inputs
+
+    check_supported(n_devices=n_devices)
+    device = resolve_device(device)
+    if hbm_budget_bytes is None:
+        hbm_budget_bytes = auto_budget(device)
+    ranked = stratify(
+        snp_data.codes, snp_data.acgtn_table, snp_data.pos, snp_data.r, block
+    )
+    nb = ranked.rank_codes.shape[1] // block
+    if would_stream(snp_data.nseq, block, nb, hbm_budget_bytes):
+        raise NotImplementedError(
+            f"the rank codes ({snp_data.nseq} x {nb * block} bytes) exceed the"
+            f" budget of {hbm_budget_bytes} bytes: slab streaming is not"
+            " ported yet (ROADMAP.md item 9)"
+        )
+    valid = np.arange(ranked.rank_codes.shape[1]) < snp_data.nsnp
+
+    # bucket key = (Rf, Rt, both-blocks-pure), as fast_sweep.py:569-577
+    buckets: Dict[Tuple[int, int, bool], List[Tuple[int, int]]] = {}
+    for i in range(nb):
+        for j in range(i, nb):
+            key = (
+                int(ranked.block_rmax[i]),
+                int(ranked.block_rmax[j]),
+                bool(ranked.block_pure[i]) and bool(ranked.block_pure[j]),
+            )
+            buckets.setdefault(key, []).append((i, j))
+
+    dev = device_inputs(ranked, valid, hdw, np.asarray(hdw, np.float64).sum(),
+                        device)
+    marg = torch.stack([
+        rank_marginals(dev.codes, i * block, block, dev.w32, 5)
+        for i in range(nb)
+    ])
+    return FastSweepState(
+        ranked=ranked, buckets=buckets, dev=dev, marg=marg, block=block,
+        g=snp_data.g,
+    )
+
+
+def uses_fused_tile(key: Tuple[int, int, bool], block: int) -> bool:
+    """True for the tiles K2 computes: (2, 2, pure) tiles on which the JAX
+    scan takes the chunked stage 1 (block > 1024, a multiple of 128)."""
+    return key == (2, 2, True) and block > 1024 and block % CHUNK == 0
+
+
+def _tile_candidates(state: FastSweepState, bi: int, bj: int,
+                     key: Tuple[int, int, bool], sr_dist: int, topk: int):
+    """One tile's LR top-k (vals, flat in-tile idx), the scan body of
+    `_build_bucket_sweep` (fast_sweep.py:432-464)."""
+    dev, B, g = state.dev, state.block, int(state.g)
+    Rf, Rt, pure = key
+    fs, ts = bi * B, bj * B
+    pos_f, pos_t = dev.pos[fs : fs + B], dev.pos[ts : ts + B]
+    val_f, val_t = dev.valid[fs : fs + B], dev.valid[ts : ts + B]
+    if uses_fused_tile(key, B):
+        c_vals, cols = fused_tile_stage1(
+            dev.codes, fs, ts, B, B, dev.wparts, state.marg[bi, :2],
+            state.marg[bj, :2], pos_f, pos_t, val_f, val_t, dev.neff,
+            bi == bj, g=g, sr_dist=sr_dist,
+        )
+        return chunk_topk(c_vals, cols, B, topk)
+    mi = rank_mi_tile(
+        dev.codes, fs, ts, B, B, dev.wparts, state.marg[bi, :Rf],
+        state.marg[bj, :Rt], dev.r[fs : fs + B], dev.r[ts : ts + B], dev.neff,
+        Rf, Rt, pure,
+    )
+    _, lr_ok = tile_masks(pos_f, pos_t, val_f, val_t, bi == bj, g, sr_dist)
+    return tile_lr_topk(torch.where(lr_ok, mi, float("-inf")), B, B, topk)
+
+
+def fast_lr_topk(
+    snp_data=None,
+    hdw: np.ndarray = None,
+    block: int = 4096,
+    sr_dist: int = 20000,
+    topk: int = 4096,
+    n_devices: Optional[int] = None,
+    state: Optional[FastSweepState] = None,
+    hbm_budget_bytes: Optional[int] = None,
+    device="cuda",
+):
+    """Full LR-only sweep -> global long-range top-k (pos1, pos2, MI),
+    MI descending.  The JAX signature's `precision_terms` is left out:
+    the port's kernels always sum the three bf16 weight terms.
+
+    Pass `state` from prepare_fast_sweep to skip the one-time host prep
+    and transfer (e.g. when sweeping repeatedly or timing the sweep)."""
+    if state is None:
+        state = prepare_fast_sweep(
+            snp_data, hdw, block, n_devices, hbm_budget_bytes, device
+        )
+    B = state.block
+    k_each = min(topk, B * B)
+    d = state.dev.codes.device
+    f32, i32 = torch.float32, torch.int32
+    parts_v, parts_b, parts_s, parts_x, plists = [], [], [], [], []
+    # JAX's bucket order (fast_sweep.py:660-662): the merge's ties follow it
+    for bidx, (key, plist) in enumerate(
+        sorted(state.buckets.items(), key=lambda kv: -len(kv[1]))
+    ):
+        # running per-bucket top-k (fast_sweep.py:432-472): the carry comes
+        # first, so earlier tiles win ties
+        best_v = torch.full((k_each,), float("-inf"), dtype=f32, device=d)
+        best_s = torch.zeros((k_each,), dtype=i32, device=d)
+        best_x = torch.zeros((k_each,), dtype=i32, device=d)
+        for slot, (bi, bj) in enumerate(plist):
+            vals, idx = _tile_candidates(state, bi, bj, key, int(sr_dist),
+                                         k_each)
+            cat_v = torch.cat([best_v, vals])
+            cat_s = torch.cat([best_s, torch.full_like(idx, slot)])
+            cat_x = torch.cat([best_x, idx])
+            best_v, sel = top_k(cat_v, k_each)
+            best_s, best_x = cat_s[sel], cat_x[sel]
+        parts_v.append(best_v)
+        parts_b.append(torch.full_like(best_s, bidx))
+        parts_s.append(best_s)
+        parts_x.append(best_x)
+        plists.append(np.asarray(plist, np.int64))
+    # merge across buckets (_build_topk_merge, fast_sweep.py:918-944)
+    v = torch.cat(parts_v)
+    mv, sel = top_k(v, min(topk, v.numel()))
+    mv = mv.cpu().numpy()
+    mb = torch.cat(parts_b)[sel].cpu().numpy().astype(np.int64)
+    ms = torch.cat(parts_s)[sel].cpu().numpy().astype(np.int64)
+    mx = torch.cat(parts_x)[sel].cpu().numpy().astype(np.int64)
+    keep = np.isfinite(mv)
+    mv, mb, ms, mx = mv[keep], mb[keep], ms[keep], mx[keep]
+    bi = np.array([plists[b][s, 0] for b, s in zip(mb, ms)], np.int64)
+    bj = np.array([plists[b][s, 1] for b, s in zip(mb, ms)], np.int64)
+    ranked = state.ranked
+    pos2 = ranked.pos[bi * B + mx // B]
+    pos1 = ranked.pos[bj * B + mx % B]
+    order = np.argsort(-mv, kind="stable")
+    return pos1[order], pos2[order], mv[order]

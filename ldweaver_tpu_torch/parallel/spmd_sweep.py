@@ -34,6 +34,8 @@ from ldweaver_tpu_torch.parallel.fast_sweep import (
     RankedSnps,
     rank_tile_mi,
     stratify,
+    tile_masks,
+    two_stage_topk,
     wparts,
 )
 
@@ -285,40 +287,24 @@ def extract_tile(
     B = block
     fs, ts = bi * B, bj * B
     mi = tile_mi(dev, bi, bj, B, Rf, Rt, pure)
-    device = mi.device
     f32 = torch.float32
-    ar = torch.arange(B, device=device)
-    ok = dev.valid[fs : fs + B, None] & dev.valid[None, ts : ts + B]
-    if bi == bj:
-        ok = ok & (ar[:, None] > ar[None, :])
-    pos_f = dev.pos[fs : fs + B]
-    pos_t = dev.pos[ts : ts + B]
-    diff = pos_t[None, :] - pos_f[:, None]
-    d = torch.where(diff < 0, diff + g, diff)
-    # f32, exactly as the reference computes it, so the SR/LR split agrees
-    half_g = torch.tensor(0.5 * g, dtype=f32, device=device)
-    lens = half_g - torch.abs(d.to(f32) - half_g)
-    sr_ok = ok & (lens <= sr_dist)
-    lr_ok = ok & (lens > sr_dist)
+    sr_ok, lr_ok = tile_masks(
+        dev.pos[fs : fs + B], dev.pos[ts : ts + B], dev.valid[fs : fs + B],
+        dev.valid[ts : ts + B], bi == bj, g, sr_dist,
+    )
 
     # ---- SR: exact row-major compaction
     sr_idx = torch.nonzero(sr_ok.reshape(-1)).reshape(-1)
     sr_vals = mi.reshape(-1)[sr_idx]
 
     # ---- LR: exact two-stage top-K + exactness certificate
-    neg_inf = torch.tensor(float("-inf"), dtype=f32, device=device)
-    neg = torch.where(lr_ok, mi, neg_inf)
+    neg = torch.where(lr_ok, mi, float("-inf"))
     lr_row = lr_ok.sum(dim=1)
     n_lr = lr_row.sum()
-    srt, order = torch.sort(-neg, dim=1, stable=True)
-    row_vals = -srt[:, :k_row]
-    flat = ar[:, None] * B + order[:, :k_row]
-    n_out = min(K, B * k_row)
-    sk, si = torch.sort(-row_vals.reshape(-1), stable=True)
-    vals = -sk[:n_out]
-    idx = flat.reshape(-1)[si[:n_out]]
+    vals, idx = two_stage_topk(neg, k_row, K)
+    n_out = vals.numel()
     # certificate at the needed depth (spmd_sweep.py:306-321)
-    prob_t = torch.tensor(prob, dtype=f32, device=device)
+    prob_t = torch.tensor(prob, dtype=f32, device=mi.device)
     i_cert = n_lr - torch.floor((n_lr.to(f32) - 1.0) * prob_t).to(n_lr.dtype) + 8
     i_cert = torch.clamp(i_cert, 0, n_out - 1)
     i_cert = torch.minimum(i_cert, torch.clamp(n_lr - 1, min=0))

@@ -78,7 +78,7 @@ def ldweaver(
     ref_fasta_path: Optional[str] = None,
     validate_ref_ann_lengths: bool = True,
     config: Optional[LDWeaverConfig] = None,
-    backend: str = "spmd",
+    backend: str = "jax",
     device="cuda",
     **config_kwargs,
 ):
@@ -87,8 +87,12 @@ def ldweaver(
 
     Equivalent of LDWeaver::LDWeaver (R/BacGWES.R:69-492) with
     SnpEff_Annotate=False.  BLK4 and BLK5 run on `device` ("cuda", or
-    "cpu" for the plain PyTorch versions of the kernels).  Returns the
-    reduced short-range link table.
+    "cpu" for the plain PyTorch versions of the kernels).  `backend`
+    picks the BLK5 sweep as in the JAX package: "spmd" (the r-stratified
+    tile sweep on kernel K1), or the compat backends "jax" (the default,
+    f32 PyTorch tiles), "pallas" (kernel K3) and "numpy" (the float64
+    oracle, which also computes BLK4 on the host).  Returns the reduced
+    short-range link table.
     """
     cfg = config or LDWeaverConfig(**config_kwargs)
     check_supported(

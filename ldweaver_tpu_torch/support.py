@@ -3,8 +3,9 @@
 Entry points call `check_supported` with the options they were given:
 anything the reference package offers but the port does not yet raises
 NotImplementedError naming its ROADMAP.md item.  `resolve_device` turns
-the `device` argument into a torch.device and refuses a CUDA device when
-no card is present (the port never falls back to the CPU silently).
+the `device` argument into a torch.device, refuses a CUDA device when no
+card is present (the port never falls back to the CPU silently), and
+turns TF32 off for the port's f32 matrix products on the card.
 """
 
 from __future__ import annotations
@@ -13,8 +14,8 @@ from typing import Optional
 
 import torch
 
-PORTED_BACKENDS = ("spmd",)
-_BACKEND_ITEMS = {"fast": 9, "jax": 11, "pallas": 11, "numpy": 11}
+PORTED_BACKENDS = ("spmd", "jax", "pallas", "numpy")
+_BACKEND_ITEMS = {"fast": 9}
 
 
 def check_supported(
@@ -30,7 +31,7 @@ def check_supported(
             raise ValueError(f"unknown MI backend {backend!r}")
         raise NotImplementedError(
             f"backend={backend!r} is not ported yet (ROADMAP.md item {item});"
-            " use backend='spmd'"
+            f" use one of {PORTED_BACKENDS}"
         )
     if n_devices is not None and n_devices > 1:
         raise NotImplementedError(
@@ -55,9 +56,14 @@ def check_supported(
 
 def resolve_device(device) -> torch.device:
     dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "device='cuda' was asked for but no CUDA device is available;"
-            " pass device='cpu' to run the plain PyTorch versions"
-        )
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "device='cuda' was asked for but no CUDA device is available;"
+                " pass device='cpu' to run the plain PyTorch versions"
+            )
+        # the port's f32 products (the plain versions, mi_tile_jax, BLK4)
+        # run at full f32 precision, as XLA's Precision.HIGHEST in the JAX
+        # package; TF32 would keep 10 mantissa bits
+        torch.backends.cuda.matmul.allow_tf32 = False
     return dev

@@ -110,10 +110,126 @@ def test_timings_and_unported_options(runs, tmp_path):
             dset=str(tmp_path / "x"), aln_path="unused.fa", gbk_path="u.gbk",
             device="cpu",
         )  # SnpEff_Annotate=True by default: BLK8-BLK12
-    for bad in (dict(backend="jax"), dict(sr_reduce="device"),
+    for bad in (dict(backend="fast"), dict(sr_reduce="device"),
                 dict(n_devices=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ldweaver_tpu_torch.ldweaver(
                 dset=str(tmp_path / "x"), aln_path="unused.fa",
                 gbk_path="u.gbk", device="cpu", SnpEff_Annotate=False, **bad,
             )
+
+
+def tile_thresholds(pkg, ranked, valid, hdw, g, sr_dist, lr_prob):
+    """{(bi, bj): (MI tile f64, LR mask, f64 type-7 retention threshold)}
+    of every tile of the r-stratified grid, each tile computed by the
+    package `pkg` ("jax": its XLA rank tile; "torch": the port's K1 plain
+    version); the mask (triangle, validity, f32 length > sr_dist) is the
+    extraction's."""
+    import torch
+
+    from ldweaver_tpu_torch.parallel import spmd_sweep
+    from ldweaver_tpu_torch.parallel.fast_sweep import tile_masks
+    from ldweaver_tpu_torch.utils.r_compat import quantile_type7
+
+    B = ranked.block
+    nb = ranked.rank_codes.shape[1] // B
+    dev = spmd_sweep.device_inputs(ranked, valid, hdw, float(hdw.sum()), "cpu")
+    out = {}
+    for bi in range(nb):
+        for bj in range(bi, nb):
+            Rf, Rt = int(ranked.block_rmax[bi]), int(ranked.block_rmax[bj])
+            pure = bool(ranked.block_pure[bi]) and bool(ranked.block_pure[bj])
+            if pkg == "torch":
+                mi = spmd_sweep.tile_mi(dev, bi, bj, B, Rf, Rt, pure)
+            else:
+                import jax.numpy as jnp
+
+                from ldweaver_tpu.parallel import fast_sweep as jfs
+
+                w32, parts = jfs._wparts(hdw)
+                fn = jfs._build_rank_tile(B, B, Rf, Rt, 3, pure=pure)
+                sl = lambda b: jnp.asarray(ranked.rank_codes[:, b * B:(b + 1) * B].T)  # noqa: E731
+                r = lambda b: jnp.asarray(ranked.r[b * B:(b + 1) * B], jnp.float32)  # noqa: E731
+                mi = torch.from_numpy(np.array(fn(
+                    sl(bi), sl(bj), jnp.asarray(w32), jnp.asarray(parts),
+                    r(bi), r(bj), jnp.asarray(np.float32(hdw.sum())),
+                )))
+            fs, ts = bi * B, bj * B
+            _, ok = tile_masks(dev.pos[fs:fs + B], dev.pos[ts:ts + B],
+                               dev.valid[fs:fs + B], dev.valid[ts:ts + B],
+                               bi == bj, g, sr_dist)
+            ok = ok.numpy()
+            mi64 = mi.numpy().astype(np.float64)
+            out[bi, bj] = (mi64, ok, quantile_type7(mi64[ok], lr_prob))
+    return out
+
+
+def test_lr_tie_group_sits_at_the_retention_threshold(runs, tmp_path):
+    """The LR rows on one side only with lr_retain_links=100_000 (ROADMAP
+    section 3's LR tie group) are a boundary tie, not a deviation: each
+    such row's MI lies within 1e-6 of its tile's f64 type-7 retention
+    threshold in the package that dropped it, and the rows of a tile form
+    one group of tied values.  Observed on the CPU: 42 rows of 102,138,
+    all in tile (1, 2), all kept by the port at MI 0.0575917810; the JAX
+    package's tile holds the same 42 pairs at 0.0575917773, one f32 ulp
+    (3.7e-9) under its threshold 0.0575917810, while in the port's tile
+    they equal the threshold and pass its >=."""
+    import ldweaver_tpu.core.sweep as jsweep
+    import ldweaver_tpu_torch.core.sweep as tsweep
+    from ldweaver_tpu.core.cds import CdsVar as JaxCdsVar
+    from ldweaver_tpu.core.snp_tensor import SnpData as JaxSnpData
+    from ldweaver_tpu_torch.core.cds import CdsVar
+    from ldweaver_tpu_torch.core.mi import estimate_lr_links
+    from ldweaver_tpu_torch.core.snp_tensor import SnpData
+    from ldweaver_tpu_torch.parallel.fast_sweep import stratify
+
+    add = os.path.join(runs["jax"], "Additional_Outputs")
+    hdw = np.load(os.path.join(add, "hdw.npz"))["hdw"]
+    kw = dict(sr_dist=20000, lr_retain_links=100_000, max_blk_sz=1000,
+              backend="spmd", verbose=False)
+    lr = {}
+    for pkg, mod, snp_cls, cds_cls, extra in (
+        ("jax", jsweep, JaxSnpData, JaxCdsVar, {}),
+        ("torch", tsweep, SnpData, CdsVar, dict(device="cpu")),
+    ):
+        sd = snp_cls.load_npz(os.path.join(add, "snp_ACGTN.npz"))
+        cds_var = cds_cls.load_npz(os.path.join(add, "cds_var.npz"))
+        path = str(tmp_path / f"{pkg}_lr.tsv")
+        mod.perform_mi_computation(
+            sd, hdw, cds_var, lr_save_path=path,
+            sr_save_path=str(tmp_path / f"{pkg}_sr.tsv"), **kw, **extra,
+        )
+        lr[pkg] = read_lr(path)
+    one_side = set(lr["jax"]) ^ set(lr["torch"])
+    assert len(lr["jax"]) > 50_000
+    if not one_side:
+        return
+
+    sd = SnpData.load_npz(os.path.join(add, "snp_ACGTN.npz"))
+    ranked = stratify(sd.codes, sd.acgtn_table, sd.pos, sd.r, 1000)
+    valid = np.arange(ranked.pos.size) < sd.nsnp
+    lr_prob = max(0.0, 1.0 - 100_000 / estimate_lr_links(sd.pos, sd.g, 20000))
+    tiles = {pkg: tile_thresholds(pkg, ranked, valid, hdw, sd.g, 20000, lr_prob)
+             for pkg in ("jax", "torch")}
+    where = {int(p): i for i, p in enumerate(ranked.pos[valid])}
+    groups = {}
+    for key in one_side:
+        kept = "jax" if key in lr["jax"] else "torch"
+        dropped = "torch" if kept == "jax" else "jax"
+        a, b = where[int(key[0])], where[int(key[1])]
+        a, b = (a, b) if a // 1000 <= b // 1000 else (b, a)
+        if a // 1000 == b // 1000 and a < b:
+            a, b = b, a  # a diagonal tile holds its pairs at i > j
+        tile = (a // 1000, b // 1000)
+        mi, ok, q = tiles[dropped][tile]
+        i, j = a % 1000, b % 1000
+        assert ok[i, j]
+        # the dropping package held the pair just under its threshold,
+        # the keeping package at or above its own
+        assert mi[i, j] < q and q - mi[i, j] <= 1e-6, (key, mi[i, j], q)
+        assert abs(lr[kept][key] - q) <= 1e-6, (key, lr[kept][key], q)
+        _, _, q_kept = tiles[kept][tile]
+        assert lr[kept][key] >= q_kept - 1e-7
+        groups.setdefault((dropped, tile), []).append(lr[kept][key])
+    for vals in groups.values():  # one group of tied values per tile
+        assert max(vals) - min(vals) <= 1e-7, vals

@@ -104,6 +104,33 @@ def test_rank_tile_matches_oracle_and_jax(Rf, Rt, pure):
     np.testing.assert_allclose(got, ref, rtol=0, atol=ATOL)
 
 
+@pytest.mark.parametrize("Rf,Rt,pure", BUCKETS)
+def test_plain_version_in_float64_is_the_exact_tile(Rf, Rt, pure):
+    """With dtype=torch.float64 the plain version is the f64 oracle's tile
+    of the same inputs (the weights its three bf16 terms sum to) up to f64
+    rounding: the reference chip_smoke.py holds the kernel against."""
+    codes_f, codes_t, w, r_f, r_t = make_tile_case(
+        Rf * 10 + Rt + 100 * pure, 40, 36, 200, Rf, Rt, pure)
+    codes = torch.from_numpy(
+        np.ascontiguousarray(np.concatenate([codes_f.T, codes_t.T], axis=1))
+    )
+    _, parts = tfs.wparts(w)
+    w_eff = parts.double().sum(0).numpy()
+    F, T = codes_f.shape[0], codes_t.shape[0]
+
+    def marginals(c, R):
+        return torch.from_numpy(np.stack([((c == x) * w_eff).sum(1) for x in range(R)]))
+
+    got = rank_mi.rank_mi_tile_reference(
+        codes, 0, F, F, T, parts, marginals(codes_f, Rf), marginals(codes_t, Rt),
+        torch.tensor(r_f, dtype=torch.float64), torch.tensor(r_t, dtype=torch.float64),
+        float(w_eff.sum()), Rf, Rt, pure, dtype=torch.float64,
+    )
+    assert got.dtype == torch.float64
+    oracle = oracle_tile(codes_f, codes_t, w_eff, r_f, r_t)
+    np.testing.assert_allclose(got.numpy(), oracle, rtol=0, atol=1e-10)
+
+
 @pytest.mark.parametrize("R", [2, 3])
 def test_rank_tile_matches_pallas_interpret(R):
     from ldweaver_tpu.ops.pallas_rank_mi import mi_tile_rank_pallas
