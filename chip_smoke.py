@@ -8,7 +8,9 @@ Phases (any failure exits nonzero before the final line):
   1. probe   - the card's name, capability (must be 9.0), power limit;
   2. build   - every CUDA kernel of the port from ldweaver_tpu_torch/csrc
                (K1 rank_mi, K2 fused_tile, K3 compat_mi), one nvcc per
-               source, all started together;
+               source, all started together; ptxas registers and spills of
+               each kernel, and from cuobjdump -sass K1's HMMA count and
+               the instructions of its counting loops (HMMA, no FFMA);
   3. kernels - K1 (the rank-compacted MI tile) at B = 4096 SNPs for every
                bucket (Rf, Rt, pure) below at the spmd slice's S = 616
                genomes, and for the LR sweep's K1 buckets at its S = 1024;
@@ -25,7 +27,8 @@ Phases (any failure exits nonzero before the final line):
                sub-tile of up to 256 x 256 (K1, K2: rtol 2e-4, atol 2e-5;
                K3: rtol 5e-5, atol 5e-6); CUDA-event times of the kernel,
                of the plain version as the CPU path runs it (float32), and
-               of one bf16 torch.matmul of the same contingency product;
+               of one bf16 torch.matmul of the same stacked count planes,
+               and the fraction of the bound each kernel reaches;
   4. small   - the port's pipeline on a small synthetic input on the card
                and on the CPU (plain versions): link tables must agree,
                for backend="spmd", "pallas" and "jax";
@@ -50,6 +53,7 @@ file.  The port imports neither JAX nor the JAX package.
 import gzip
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -121,10 +125,41 @@ def build():
     report = cuda_build.build(cuda_build.KERNELS, force=True)
     for name, r in report.items():
         log(f"built {name} in {r['seconds']:.1f} s")
-        for line in r["log"].splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {line.strip()}")
+        # ptxas -v: "Function properties for <mangled>", its spill line,
+        # then "Used N registers, ..." for each kernel
+        kernels = re.findall(
+            r"Function properties for (\S+)\n.*?(\d+) bytes spill stores,"
+            r" (\d+) bytes spill loads\n.*?Used (\d+) registers[^\n]*?(\d+) bytes smem",
+            r["log"])
+        for mangled, st, ld, regs, smem in kernels:
+            kern = re.search(r"([a-z][a-z_]*_kernel)", mangled)
+            args = re.findall(r"L[ib](\d+)E", mangled)
+            log(f"  {kern.group(1) if kern else mangled}<{','.join(args)}>: {regs}"
+                f" registers, {smem} bytes smem, spill {st}/{ld} bytes")
+        regs = [int(k[3]) for k in kernels]
+        spill = sum(int(k[1]) + int(k[2]) for k in kernels)
+        log(f"{name}: {len(regs)} kernels, at most {max(regs, default=0)} registers a"
+            f" thread, {spill} bytes of spill stores and loads in all")
     log(f"build wall {time.time() - t0:.1f} s")
+    # K1 counts on the tensor cores: its SASS must hold HMMA instructions
+    cuobjdump = os.path.join(os.path.dirname(cuda_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", cuda_build.library_path("rank_mi")],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    hmma = sum("HMMA" in line for line in sass.splitlines())
+    # each kernel's counting loop: the code from its first HMMA to its last
+    loop_ops = {}
+    for fn in sass.split("Function : ")[1:]:
+        lines = fn.splitlines()
+        at = [i for i, line in enumerate(lines) if "HMMA" in line]
+        for line in lines[at[0] : at[-1] + 1] if at else []:
+            op = re.search(r"\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)", line)
+            if op:
+                loop_ops[op.group(1)] = loop_ops.get(op.group(1), 0) + 1
+    log(f"rank_mi SASS: {hmma} HMMA instructions; instructions of the counting"
+        f" loops: {dict(sorted(loop_ops.items(), key=lambda kv: -kv[1]))}")
+    if hmma == 0 or loop_ops.get("FFMA", 0):
+        raise RuntimeError("K1 does not count on the tensor cores alone")
 
 
 # --------------------------------------------------------------------------
@@ -218,7 +253,8 @@ def kernel_phase(S, buckets, seed):
     on the card (the exact tile of the kernel's own inputs) and the host
     f64 oracle on a 256 x 256 sub-tile; CUDA-event times of the kernel,
     the plain version as the CPU path runs it (float32) and one bf16
-    torch.matmul of the same contingency product."""
+    torch.matmul of the stacked count planes,
+    [(Rf-1) B, 3S] x [3S, (Rt-1) B]."""
     import torch
 
     from ldweaver_tpu_torch.core.mi import mi_tile_numpy
@@ -267,8 +303,8 @@ def kernel_phase(S, buckets, seed):
         plain_ms = cuda_time_ms(lambda: rank_mi.rank_mi_tile_reference(*args), reps=3, warm=1)
         nc = (Rf - 1) * (Rt - 1) if Rf >= 2 and Rt >= 2 else 0
         if nc:
-            lhs = torch.ones((B, 3 * S), dtype=torch.bfloat16, device=dev)
-            rhs = torch.ones((B, 3 * S), dtype=torch.bfloat16, device=dev)
+            lhs = torch.ones(((Rf - 1) * B, 3 * S), dtype=torch.bfloat16, device=dev)
+            rhs = torch.ones(((Rt - 1) * B, 3 * S), dtype=torch.bfloat16, device=dev)
             library_ms = cuda_time_ms(lambda: torch.matmul(lhs, rhs.T), reps=20)
             del lhs, rhs
         else:
@@ -279,11 +315,12 @@ def kernel_phase(S, buckets, seed):
             Rf=Rf, Rt=Rt, pure=pure, S=S, max_abs_err=err,
             f32_plain_max_abs_err=err32, f64_max_abs_err=err64,
             ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-            bound_ms=bound_ms, bound_by=bound_by,
+            bound_ms=bound_ms, bound_by=bound_by, bound_frac=bound_ms / ms,
         )
         rows[(Rf, Rt, pure)] = row
-        log(f"{tag}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, matmul"
-            f" {library_ms} ms, bound {1e3 * bound_ms:.1f} us ({bound_by});"
+        log(f"{tag}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, stacked-plane"
+            f" matmul {library_ms} ms, bound {bound_ms:.4f} ms ({bound_by}),"
+            f" {bound_ms / ms:.3f} of the bound;"
             f" max|kernel-plain64| {err:.2e} (f32 plain: kernel {err32:.2e},"
             f" plain {err_plain:.2e}), max|kernel-f64 oracle| {err64:.2e}")
         if err > ATOL_PLAIN:
@@ -410,9 +447,11 @@ def fused_phase():
                       + 2 * B + 8 * B * (B // 128))
             bound_ms, bound_by = bound(nbytes, 2.0 * B * B * 3 * K2_S)
             row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                       library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+                       library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                       bound_frac=bound_ms / ms)
             log(f"K2 timing: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bf16"
-                f" matmul {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+                f" matmul {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}),"
+                f" {bound_ms / ms:.3f} of the bound")
         else:
             row["max_abs_err"] = max(row["max_abs_err"], err)
         del codes, kv, kc, ev, ec, pv, args
@@ -473,10 +512,11 @@ def compat_kernel_phase():
         rows[(F, T)] = dict(max_abs_err=err, f32_plain_max_abs_err=err32,
                             f64_max_abs_err=err64, ms=ms, plain_ms=plain_ms,
                             library_ms=library_ms, bound_ms=bound_ms,
-                            bound_by=bound_by)
+                            bound_by=bound_by, bound_frac=bound_ms / ms)
         log(f"{tag}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bf16 matmul"
             f" of the 16 planes {library_ms:.4f} ms, bound {bound_ms:.4f} ms"
-            f" ({bound_by}); max|kernel-plain64| {err:.2e} (f32 plain: kernel"
+            f" ({bound_by}), {bound_ms / ms:.3f} of the bound;"
+            f" max|kernel-plain64| {err:.2e} (f32 plain: kernel"
             f" {err32:.2e}, plain {err_plain:.2e}), max|kernel-f64 oracle|"
             f" {err64:.2e} ({k_sub.shape[0]}x{k_sub.shape[1]} sub-input)")
         if err > ATOL_PLAIN:
@@ -677,8 +717,16 @@ def device_time_split(fn, top=6):
     total = sum(dev_us(e) for e in events) / 1e6
     events.sort(key=dev_us, reverse=True)
     split = [(e.key[:60], round(dev_us(e) / 1e3, 2), e.count) for e in events[:top]]
+    # the port's own kernels, all template instances of one kernel together
+    ours = {}
+    for e in events:
+        kern = re.search(r"\b(rank_mi|fused_tile|compat_mi)_kernel\b", e.key)
+        if kern:
+            ms, n = ours.get(kern.group(1), (0.0, 0))
+            ours[kern.group(1)] = (round(ms + dev_us(e) / 1e3, 2), n + e.count)
     log(f"profiled call: wall {wall:.3f} s, device time {total:.3f} s;"
-        f" top kernels (name, ms, count): {split}")
+        f" top kernels (name, ms, count): {split}; the port's kernels"
+        f" (ms, count): {ours}")
     return dict(profiled_wall_s=wall, device_busy_s=total)
 
 
@@ -829,7 +877,7 @@ def main():
                           else "ldweaver_tpu/ops/pallas_rank_mi.py:23"),
                 launches=path_launches.get((Rf, Rt, pure), 0),
                 **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                       "bound_by", "library_ms")},
+                                       "bound_by", "bound_frac", "library_ms")},
             ))
     kernels.append(dict(
         name="fused_tile_stage1[Rf=2,Rt=2,pure,S=1024]", route="cuda",
@@ -847,7 +895,7 @@ def main():
             replaces="ldweaver_tpu/ops/pallas_mi.py:28",
             launches=k3_by_shape.get((F, T), 0),
             **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                   "bound_by", "library_ms")},
+                                   "bound_by", "bound_frac", "library_ms")},
         ))
     print(json.dumps({"kernels": kernels}))
     print(smi)

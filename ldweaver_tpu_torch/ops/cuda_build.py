@@ -3,14 +3,16 @@
 Each source `csrc/<name>.cu` compiles with nvcc for sm_90a into its own
 shared library with a plain C interface, `_build/lib<name>.so` inside the
 package (git ignores `_build/`), loaded with ctypes.  A library is rebuilt
-when it is missing or older than its source.  `build` starts one nvcc per
-source, all at once, and waits for them; `load` builds on first use.
+when it is missing or older than its source or a header in `csrc/`.
+`build` starts one nvcc per source, all at once, and waits for them;
+`load` builds on first use.
 Nothing is compiled or loaded when a module is imported.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import os
 import shutil
 import subprocess
@@ -52,10 +54,13 @@ def library_path(name: str) -> str:
 
 
 def _stale(name: str) -> bool:
+    """True when the library is missing or older than its source or than
+    any header in csrc/ (a source may include any of them)."""
     so = library_path(name)
-    return not os.path.exists(so) or (
-        os.path.getmtime(so) < os.path.getmtime(source_path(name))
-    )
+    if not os.path.exists(so):
+        return True
+    inputs = [source_path(name), *glob.glob(os.path.join(CSRC_DIR, "*.cuh"))]
+    return os.path.getmtime(so) < max(os.path.getmtime(p) for p in inputs)
 
 
 def build(names: Iterable[str] = KERNELS, force: bool = False) -> Dict[str, dict]:

@@ -3,9 +3,10 @@ against the f64 oracle, the JAX package's XLA tile and its Pallas kernel
 (interpret mode), plus the bit-exact host pieces: rank encoding,
 stratification and the bf16 weight split.
 
-The kernel itself needs a card: `test_kernel_matches_plain_on_card` is
-marked `cuda` and skips without one (chip_smoke.py holds the kernel
-against the plain version at the main path's shapes)."""
+The kernel itself needs a card: the tests marked `cuda` skip without one
+(chip_smoke.py holds the kernel against the plain version at the main
+path's shapes); they hold it against the plain version run in float64 at
+the shapes most likely to break its mma fragments and its padding."""
 
 import numpy as np
 import pytest
@@ -212,3 +213,88 @@ def test_kernel_matches_plain_on_card(cuda_device, Rf, Rt, pure):
     assert rank_mi.K1.launches == before + 1
     plain = rank_mi.rank_mi_tile_reference(*args)
     assert torch.allclose(got, plain, rtol=0, atol=ATOL)
+
+
+# every warp-tile geometry of the kernel (mma_planes::Planes) and the
+# marginals-only buckets
+CARD_BUCKETS = BUCKETS + [(2, 3, True), (4, 3, False), (3, 5, False),
+                          (4, 4, False), (5, 2, False)]
+# (nf, nt, S): one mma fragment, single rows / columns, ragged edges; S
+# below one 64-genome chunk and past whole chunks, and off the 8-genome
+# copy width (S = 1, 15 take plain loads)
+EDGE_SHAPES = [(16, 16, 16), (1, 129, 200), (129, 1, 15), (17, 40, 616),
+               (40, 17, 1), (129, 129, 616)]
+
+
+def edge_args(device, seed, nf, nt, S, Rf, Rt, pure, aligned):
+    """Kernel arguments on `device`: rows at column fs and columns at ts of
+    a sequence-major code tensor whose other columns hold stray codes 0..4.
+    Aligned: fs, ts and the row length multiples of 16; else odd offsets."""
+    rng = np.random.default_rng(seed)
+
+    def side(n, R):
+        r = np.full(n, R) if pure else rng.integers(1, R + 1, n)
+        r[0] = R
+        return (rng.random((S, n)) * r[None, :]).astype(np.uint8), r
+
+    cf, r_f = side(nf, Rf)
+    ct, r_t = side(nt, Rt)
+    if aligned:
+        fs = 16
+        ts = fs + 16 * (-(-nf // 16)) + 16
+        ld = 16 * (-(-(ts + nt) // 16))
+    else:
+        fs, ts = 3, 3 + nf + 5
+        ld = ts + nt + 1
+    codes = rng.integers(0, 5, (S, ld)).astype(np.uint8)
+    codes[:, fs : fs + nf] = cf
+    codes[:, ts : ts + nt] = ct
+    w = 1.0 / rng.integers(1, 12, S)
+    codes = torch.from_numpy(codes).to(device)
+    w32, parts = tfs.wparts(w)
+    w32, parts = w32.to(device), parts.to(device)
+    return (
+        codes, fs, ts, nf, nt, parts,
+        tfs.rank_marginals(codes, fs, nf, w32, Rf),
+        tfs.rank_marginals(codes, ts, nt, w32, Rt),
+        torch.tensor(r_f, dtype=torch.float32, device=device),
+        torch.tensor(r_t, dtype=torch.float32, device=device),
+        float(np.float32(w.sum())), Rf, Rt, pure,
+    )
+
+
+def check_against_exact(args):
+    got = rank_mi.rank_mi_tile(*args)
+    if got.is_cuda:
+        torch.cuda.synchronize()
+    exact = rank_mi.rank_mi_tile_reference(*args, dtype=torch.float64)
+    assert got.shape == exact.shape and bool(torch.isfinite(got).all())
+    err = float((got.double() - exact).abs().max())
+    assert err <= ATOL, err
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("nf,nt,S", EDGE_SHAPES)
+def test_edge_shapes_take_the_plain_version_on_cpu(nf, nt, S, aligned):
+    """The card tests' inputs on the CPU, where the wrapper runs the plain
+    version: offsets, stray columns and tiny S leave it within ATOL of the
+    exact tile."""
+    check_against_exact(edge_args("cpu", S, nf, nt, S, 3, 3, False, aligned))
+
+
+@pytest.mark.cuda
+def test_kernel_fragment_layout_on_card(cuda_device):
+    """The smallest tile: one (2, 2) plane of one 16 x 16 mma tile over 16
+    genomes, the first thing to hold on a new card."""
+    check_against_exact(edge_args(cuda_device, 0, 16, 16, 16, 2, 2, False, True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("nf,nt,S", EDGE_SHAPES)
+@pytest.mark.parametrize("Rf,Rt,pure", CARD_BUCKETS)
+def test_kernel_edge_shapes_on_card(cuda_device, Rf, Rt, pure, nf, nt, S,
+                                    aligned):
+    seed = Rf * 10 + Rt + 100 * pure + 1000 * nf + 7 * nt + S
+    check_against_exact(
+        edge_args(cuda_device, seed, nf, nt, S, Rf, Rt, pure, aligned))
