@@ -9,8 +9,9 @@ Phases (any failure exits nonzero before the final line):
   2. build   - every CUDA kernel of the port from ldweaver_tpu_torch/csrc
                (K1 rank_mi, K2 fused_tile, K3 compat_mi), one nvcc per
                source, all started together; ptxas registers and spills of
-               each kernel, and from cuobjdump -sass K1's HMMA count and
-               the instructions of its counting loops (HMMA, no FFMA);
+               each kernel (every one <= 128 registers, 0 spill bytes),
+               and from cuobjdump -sass each library's HMMA count and the
+               instructions of its counting loops (HMMA, no FFMA);
   3. kernels - K1 (the rank-compacted MI tile) at B = 4096 SNPs for every
                bucket (Rf, Rt, pure) below at the spmd slice's S = 616
                genomes, and for the LR sweep's K1 buckets at its S = 1024;
@@ -140,26 +141,30 @@ def build():
         spill = sum(int(k[1]) + int(k[2]) for k in kernels)
         log(f"{name}: {len(regs)} kernels, at most {max(regs, default=0)} registers a"
             f" thread, {spill} bytes of spill stores and loads in all")
+        # two 256-thread blocks an SM need <= 128 registers a thread
+        if not regs or max(regs) > 128 or spill:
+            raise RuntimeError(f"{name}: a kernel above 128 registers or spilling")
     log(f"build wall {time.time() - t0:.1f} s")
-    # K1 counts on the tensor cores: its SASS must hold HMMA instructions
+    # every kernel counts on the tensor cores: each library's SASS must hold
+    # HMMA instructions, and no FFMA between a kernel's first HMMA and its last
     cuobjdump = os.path.join(os.path.dirname(cuda_build._nvcc()), "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", cuda_build.library_path("rank_mi")],
-                          capture_output=True, text=True, check=True,
-                          timeout=300).stdout
-    hmma = sum("HMMA" in line for line in sass.splitlines())
-    # each kernel's counting loop: the code from its first HMMA to its last
-    loop_ops = {}
-    for fn in sass.split("Function : ")[1:]:
-        lines = fn.splitlines()
-        at = [i for i, line in enumerate(lines) if "HMMA" in line]
-        for line in lines[at[0] : at[-1] + 1] if at else []:
-            op = re.search(r"\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)", line)
-            if op:
-                loop_ops[op.group(1)] = loop_ops.get(op.group(1), 0) + 1
-    log(f"rank_mi SASS: {hmma} HMMA instructions; instructions of the counting"
-        f" loops: {dict(sorted(loop_ops.items(), key=lambda kv: -kv[1]))}")
-    if hmma == 0 or loop_ops.get("FFMA", 0):
-        raise RuntimeError("K1 does not count on the tensor cores alone")
+    for name in cuda_build.KERNELS:
+        sass = subprocess.run([cuobjdump, "-sass", cuda_build.library_path(name)],
+                              capture_output=True, text=True, check=True,
+                              timeout=300).stdout
+        hmma = sum("HMMA" in line for line in sass.splitlines())
+        loop_ops = {}
+        for fn in sass.split("Function : ")[1:]:
+            lines = fn.splitlines()
+            at = [i for i, line in enumerate(lines) if "HMMA" in line]
+            for line in lines[at[0] : at[-1] + 1] if at else []:
+                op = re.search(r"\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)", line)
+                if op:
+                    loop_ops[op.group(1)] = loop_ops.get(op.group(1), 0) + 1
+        log(f"{name} SASS: {hmma} HMMA instructions; instructions of the counting"
+            f" loops: {dict(sorted(loop_ops.items(), key=lambda kv: -kv[1]))}")
+        if hmma == 0 or loop_ops.get("FFMA", 0):
+            raise RuntimeError(f"{name} does not count on the tensor cores alone")
 
 
 # --------------------------------------------------------------------------
@@ -724,10 +729,11 @@ def device_time_split(fn, top=6):
         if kern:
             ms, n = ours.get(kern.group(1), (0.0, 0))
             ours[kern.group(1)] = (round(ms + dev_us(e) / 1e3, 2), n + e.count)
+    shares = {k: round(ms / (1e3 * total), 4) for k, (ms, _) in ours.items()}
     log(f"profiled call: wall {wall:.3f} s, device time {total:.3f} s;"
         f" top kernels (name, ms, count): {split}; the port's kernels"
-        f" (ms, count): {ours}")
-    return dict(profiled_wall_s=wall, device_busy_s=total)
+        f" (ms, count): {ours}, share of the device time: {shares}")
+    return dict(profiled_wall_s=wall, device_busy_s=total, device_share=shares)
 
 
 # --------------------------------------------------------------------------
@@ -801,7 +807,8 @@ def lr_phase():
         f" {median:.3f} s = {pairs / median:.4g} pairs/s; per call K2 {k2}"
         f" launches, K1 {k1} {k1_by_bucket}; device time"
         f" {busy['device_busy_s']:.3f} s = {100 * busy['device_busy_s'] / median:.0f}%"
-        f" of the median wall")
+        f" of the median wall, K2"
+        f" {100 * busy['device_share'].get('fused_tile', 0.0):.1f}% of it")
     del state
     torch.cuda.empty_cache()
     return out, k1_by_bucket

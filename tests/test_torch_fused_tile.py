@@ -176,3 +176,122 @@ def test_kernel_matches_plain_on_card(cuda_device, same):
         tile = plain_tile(c, same)
         rows = np.nonzero(mism)[0]
         assert np.abs(tile[rows, kc[mism]] - tile[rows, pc[mism]]).max() <= 1e-5
+
+
+# (nf, nt, S): one mma fragment of rows, a single row, ragged row blocks,
+# several chunks; S below one 64-genome chunk, past whole chunks, and off
+# the 8-genome copy width (S = 1, 15 take plain loads)
+EDGE_SHAPES = [(16, 128, 16), (1, 128, 200), (129, 128, 15), (17, 256, 616),
+               (128, 384, 1), (129, 128, 1024)]
+ATOL_EXACT, NEAR_TIE = 2e-5, 1e-5  # chip_smoke.py's rule for K2
+
+
+def edge_args(device, seed, nf, nt, S, same, aligned):
+    """Kernel arguments on `device`: rows at column fs and columns at ts
+    (ts = fs on a diagonal block pair) of a sequence-major code tensor
+    whose other columns hold stray codes 0..4.  Aligned: fs, ts and the
+    row length multiples of 16; else odd offsets.  Per-site positions and
+    validity: pad sites at the ends of both sides, one invalid row
+    (`masked_row`, so all its chunks are -inf), and in the first chunk
+    column 2k + 1 a copy of column 2k (codes, position, validity), so every
+    value there is tied with the column before it."""
+    rng = np.random.default_rng(seed)
+    if aligned:
+        fs = 16
+        ts = fs if same else fs + 16 * (-(-nf // 16)) + 16
+        ld = 16 * (-(-max(fs + nf, ts + nt) // 16))
+    else:
+        fs = 3
+        ts = fs if same else fs + nf + 5
+        ld = max(fs + nf, ts + nt) + 1
+    codes = rng.integers(0, 5, (S, ld)).astype(np.uint8)
+    pos = np.sort(rng.choice(np.arange(1, G + 1), ld, replace=False)).astype(np.int32)
+    valid = np.ones(ld, bool)
+    for lo, n in ((fs, nf), (ts, nt)):
+        maf = rng.uniform(0.02, 0.5, n)
+        codes[:, lo : lo + n] = rng.random((S, n)) < maf[None, :]
+        valid[lo + n - 1] = False
+    masked_row = nf // 2
+    valid[fs + masked_row] = False
+    pair = np.arange(ts, ts + 128, 2)
+    codes[:, pair + 1] = codes[:, pair]
+    pos[pair + 1] = pos[pair]
+    valid[pair + 1] = valid[pair]
+    w = 1.0 / rng.integers(1, 12, S)
+    codes = torch.from_numpy(codes).to(device)
+    pos = torch.from_numpy(pos).to(device)
+    valid = torch.from_numpy(valid).to(device)
+    w32, parts = tfs.wparts(w)
+    w32, parts = w32.to(device), parts.to(device)
+    args = (
+        codes, fs, ts, nf, nt, parts,
+        tfs.rank_marginals(codes, fs, nf, w32, 2),
+        tfs.rank_marginals(codes, ts, nt, w32, 2),
+        pos[fs : fs + nf], pos[ts : ts + nt],
+        valid[fs : fs + nf], valid[ts : ts + nt],
+        float(np.float32(w.sum())), same,
+    )
+    return args, masked_row
+
+
+def check_against_exact(args, masked_row):
+    """The wrapper's candidates against the plain version in float64: the
+    same -inf chunks, values within ATOL_EXACT, columns equal except at
+    near-ties of the f64 tile; -inf chunks and exact ties report their
+    first column."""
+    codes, fs, ts, nf, nt, parts, px, py = args[:8]
+    kv, kc = fused_tile.fused_tile_stage1(*args, g=G, sr_dist=SR)
+    if kv.is_cuda:
+        torch.cuda.synchronize()
+    ev, ec = fused_tile.fused_tile_stage1_reference(*args, g=G, sr_dist=SR,
+                                                    dtype=torch.float64)
+    nch = nt // 128
+    assert kv.shape == kc.shape == (nf, nch) and kc.dtype == torch.int32
+    assert not bool(torch.isnan(kv).any())
+    assert torch.equal(torch.isneginf(kv), torch.isneginf(ev))
+    fin = torch.isfinite(ev)
+    if fin.any():
+        err = float((kv[fin].double() - ev[fin]).abs().max())
+        assert err <= ATOL_EXACT, err
+    first = (torch.arange(nch, device=kc.device) * 128).to(torch.int32)
+    assert torch.equal(kc[masked_row], first)
+    assert torch.equal(kc[~fin], first.expand(nf, nch)[~fin])
+    assert bool((kc[:, 0] % 2 == 0).all())  # exact ties: the first column
+    mism = kc != ec
+    if mism.any():  # near-ties, judged on the exact tile
+        two = torch.full((max(nf, nt),), 2.0, device=kc.device)
+        tile = rank_mi_tile_reference(codes, fs, ts, nf, nt, parts, px, py,
+                                      two[:nf], two[:nt], args[12], 2, 2, True,
+                                      dtype=torch.float64)
+        rows = torch.nonzero(mism)[:, 0]
+        gap = float((tile[rows, kc[mism].long()] - tile[rows, ec[mism].long()]).abs().max())
+        assert gap <= NEAR_TIE, gap
+
+
+@pytest.mark.parametrize("same", [False, True])
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("nf,nt,S", EDGE_SHAPES)
+def test_edge_shapes_take_the_plain_version_on_cpu(nf, nt, S, aligned, same):
+    """The card tests' inputs on the CPU, where the wrapper runs the plain
+    version: offsets, stray columns, ties and tiny S leave it within
+    ATOL_EXACT of the exact candidates."""
+    before = fused_tile.K2.launches
+    check_against_exact(*edge_args("cpu", nf + nt + S, nf, nt, S, same, aligned))
+    assert fused_tile.K2.launches == before
+
+
+@pytest.mark.cuda
+def test_kernel_fragment_layout_on_card(cuda_device):
+    """The smallest tile: 16 rows of one 128-column chunk over 16 genomes,
+    the first thing to hold on a new card."""
+    check_against_exact(*edge_args(cuda_device, 0, 16, 128, 16, False, True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("same", [False, True])
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("nf,nt,S", EDGE_SHAPES)
+def test_kernel_edge_shapes_on_card(cuda_device, nf, nt, S, aligned, same):
+    before = fused_tile.K2.launches
+    check_against_exact(*edge_args(cuda_device, nf + nt + S, nf, nt, S, same, aligned))
+    assert fused_tile.K2.launches == before + 1
