@@ -153,7 +153,11 @@ def compat_mi_tile_reference(codes, fs: int, ts: int, nf: int, nt: int,
 def tile_inputs(codes_f, codes_t, w, r_f, r_t, uq_f, uq_t, neff,
                 rxy_compat=True, device="cuda"):
     """`compat_mi_tile`'s operands on `device`, prepared on the host exactly
-    as the JAX wrapper prepares them (pallas_mi.py:176-215)."""
+    as the JAX wrapper prepares them (pallas_mi.py:176-215).  The code
+    tensor holds the row SNPs from column 0 and the column SNPs from the
+    next multiple of 16, and its rows are a multiple of 16 long (the zero
+    columns between are read by no tile), so the kernel stages every tile
+    with 16-byte copies."""
     dev = resolve_device(device)
     F, S = codes_f.shape
     T = codes_t.shape[0]
@@ -163,15 +167,16 @@ def tile_inputs(codes_f, codes_t, w, r_f, r_t, uq_f, uq_t, neff,
     for a in range(N_ALLELES):
         pxf[a] = ((codes_f == a) * w).sum(axis=1)
         pyf[a] = ((codes_t == a) * w).sum(axis=1)
-    codes = np.ascontiguousarray(
-        np.concatenate([codes_f.T, codes_t.T], axis=1), dtype=np.uint8
-    )
+    ts = -(-F // 16) * 16
+    codes = np.zeros((S, ts + -(-T // 16) * 16), np.uint8)
+    codes[:, :F] = codes_f.T
+    codes[:, ts : ts + T] = codes_t.T
 
     def t(a, dtype=torch.float32):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
 
     return (
-        t(codes, torch.uint8), 0, F, F, T, parts.to(dev).contiguous(),
+        t(codes, torch.uint8), 0, ts, F, T, parts.to(dev).contiguous(),
         t(pxf), t(pyf), t(np.asarray(r_f, np.float32)),
         t(np.asarray(r_t, np.float32)), t(np.asarray(uq_f, np.float32).T),
         t(np.asarray(uq_t, np.float32).T), float(np.float32(neff)),

@@ -17,6 +17,7 @@ from ldweaver_tpu.core import mi as jmi
 from ldweaver_tpu.ops.pallas_mi import mi_tile_pallas as jax_pallas
 from ldweaver_tpu_torch.core import mi as tmi
 from ldweaver_tpu_torch.ops import compat_mi
+from ldweaver_tpu_torch.parallel.fast_sweep import wparts
 
 RTOL, ATOL = 5e-5, 5e-6
 
@@ -137,3 +138,112 @@ def test_kernel_matches_plain_on_card(cuda_device, name):
     assert np.abs(got - plain).max() <= 2e-5
     oracle = tmi.mi_tile_numpy(*args, rxy_compat=compat)
     assert np.allclose(got, oracle, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_padded_tile_inputs_give_the_same_plain_tile(name):
+    """`tile_inputs` starts the column SNPs and ends the rows on multiples
+    of 16 columns; the plain version's tile is bit for bit the one of the
+    unpadded [S, F + T] code tensor with the columns at F."""
+    seed, F, T, S, compat, varied = CASES[name]
+    codes_f, codes_t, w, r_f, r_t, uq_f, uq_t, neff = make_case(seed, F, T, S, varied)
+    args = list(compat_mi.tile_inputs(codes_f, codes_t, w, r_f, r_t, uq_f, uq_t,
+                                      neff, compat, device="cpu"))
+    codes, ts = args[0], args[2]
+    assert ts % 16 == 0 and codes.shape[1] % 16 == 0 and ts >= F
+    padded = compat_mi.compat_mi_tile_reference(*args)
+    args[0] = torch.from_numpy(np.ascontiguousarray(
+        np.concatenate([codes_f.T, codes_t.T], axis=1)))
+    args[2] = F
+    assert torch.equal(padded, compat_mi.compat_mi_tile_reference(*args))
+
+
+# (nf, nt, S) as tests/test_torch_rank_mi.py: one mma fragment, single rows
+# / columns, ragged edges of the 32 x 32 block tile; S below one 64-genome
+# chunk, past whole chunks, and off the 8-genome copy width
+EDGE_SHAPES = [(16, 16, 16), (1, 129, 200), (129, 1, 15), (17, 40, 616),
+               (40, 17, 1), (129, 129, 616)]
+ATOL_EXACT = 2e-5  # chip_smoke.py's bound for K3 against the f64 plain
+
+
+def edge_args(device, seed, nf, nt, S, aligned, rxy_compat):
+    """Kernel arguments on `device`: ACGTN codes (each site drawing from
+    its own 1..5 of them, N included) for rows at column fs and columns at
+    ts of a sequence-major code tensor whose other columns hold stray
+    codes 0..4.  Aligned: fs, ts and the row length multiples of 16; else
+    odd offsets."""
+    rng = np.random.default_rng(seed)
+
+    def side(n):
+        out = np.empty((S, n), np.uint8)
+        for i in range(n):
+            alleles = rng.permutation(5)[: rng.integers(1, 6)]
+            out[:, i] = rng.choice(alleles, S)
+        uq = np.stack([(out == a).any(0) for a in range(5)])
+        return out, uq.astype(np.float32), uq.sum(0)
+
+    cf, uq_f, r_f = side(nf)
+    ct, uq_t, r_t = side(nt)
+    if aligned:
+        fs = 16
+        ts = fs + 16 * (-(-nf // 16)) + 16
+        ld = 16 * (-(-(ts + nt) // 16))
+    else:
+        fs, ts = 3, 3 + nf + 5
+        ld = ts + nt + 1
+    codes = rng.integers(0, 5, (S, ld)).astype(np.uint8)
+    codes[:, fs : fs + nf] = cf
+    codes[:, ts : ts + nt] = ct
+    w = 1.0 / rng.integers(1, 12, S)
+    _, parts = wparts(w)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
+
+    return (
+        torch.from_numpy(codes).to(device), fs, ts, nf, nt, parts.to(device),
+        t([((cf == a) * w[:, None]).sum(0) for a in range(5)]),
+        t([((ct == a) * w[:, None]).sum(0) for a in range(5)]),
+        t(r_f), t(r_t), t(uq_f), t(uq_t), float(np.float32(w.sum())),
+        t(tmi.rxy_term(r_f, r_t, compat=rxy_compat)),
+    )
+
+
+def check_against_exact(args):
+    got = compat_mi.compat_mi_tile(*args)
+    if got.is_cuda:
+        torch.cuda.synchronize()
+    exact = compat_mi.compat_mi_tile_reference(*args, dtype=torch.float64)
+    assert got.shape == exact.shape and bool(torch.isfinite(got).all())
+    err = float((got.double() - exact).abs().max())
+    assert err <= ATOL_EXACT, err
+
+
+@pytest.mark.parametrize("rxy_compat", [True, False])
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("nf,nt,S", EDGE_SHAPES)
+def test_edge_shapes_take_the_plain_version_on_cpu(nf, nt, S, aligned, rxy_compat):
+    """The card tests' inputs on the CPU, where the wrapper runs the plain
+    version: offsets, stray columns, N codes and tiny S leave it within
+    ATOL_EXACT of the exact tile."""
+    before = compat_mi.K3.launches
+    check_against_exact(edge_args("cpu", nf + nt + S, nf, nt, S, aligned, rxy_compat))
+    assert compat_mi.K3.launches == before
+
+
+@pytest.mark.cuda
+def test_kernel_fragment_layout_on_card(cuda_device):
+    """The smallest tile: one 16 x 16 mma tile of all 16 planes over 16
+    genomes, the first thing to hold on a new card."""
+    check_against_exact(edge_args(cuda_device, 0, 16, 16, 16, True, True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rxy_compat", [True, False])
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("nf,nt,S", EDGE_SHAPES)
+def test_kernel_edge_shapes_on_card(cuda_device, nf, nt, S, aligned, rxy_compat):
+    before = compat_mi.K3.launches
+    check_against_exact(
+        edge_args(cuda_device, nf + nt + S, nf, nt, S, aligned, rxy_compat))
+    assert compat_mi.K3.launches == before + 1
