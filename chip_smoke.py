@@ -33,8 +33,12 @@ Phases (any failure exits nonzero before the final line):
   4. small   - the port's pipeline on a small synthetic input on the card
                and on the CPU (plain versions): link tables must agree,
                for backend="spmd", "pallas" and "jax";
-  5. slice   - the spmd path, `ldweaver(..., backend="spmd")` through
-               BLK1-BLK7 at 616 genomes x 2.2 Mb x 32,768 SNPs;
+  5. slice   - the main path, `ldweaver(..., backend="spmd")` with the
+               default config (SnpEff_Annotate=True) through BLK1-BLK12 at
+               616 genomes x 2.2 Mb x 32,768 SNPs: K1's launches, the
+               per-block times, and every data file of BLK8-BLK12 present;
+     cli     - `python -m ldweaver_tpu_torch.cli run --device cuda` in a
+               subprocess on the small input: exit 0 and the SR tophits;
   6. lr      - the LR-only sweep `fast_lr_topk`: card against CPU at 64
                genomes x 16,384 SNPs, then the bench.py sweep leg (the
                `synth` recipe at 1024 genomes x 131,072 SNPs, block 4096,
@@ -43,7 +47,7 @@ Phases (any failure exits nonzero before the final line):
                BLK1-BLK7 at 616 genomes x 2.2 Mb x 8,192 SNPs,
                max_blk_sz=4000 (3 blocks, 6 tiles).
 Each path runs with the launch counts of its kernels set to 0 just before
-and read just after.
+and read just after (the cli phase's launches are its subprocess's own).
 
 Prints one JSON line of per-kernel numbers, then the card's name and
 power limit as nvidia-smi gives them, then the ok line.  The input data
@@ -606,6 +610,36 @@ def read_links(dset):
     return sr, lr
 
 
+# the data files of BLK8-BLK12 in cleanup()'s layout (BLK9 writes
+# SR_Tanglegram); the network pages are written without matplotlib too
+BLK8_12_FILES = [
+    "Tophits/sr_tophits.tsv", "Tophits/lr_tophits.tsv",
+    "Annotated_links/sr_links_annotated.tsv",
+    "Annotated_links/lr_links_annotated.tsv",
+    "Temp/sr_annotations.tsv", "Temp/lr_annotations.tsv",
+    "Temp/sr_snps.vcf", "Temp/lr_snps.vcf",
+    *[f"GWESExplorer/{k}_GWESExplorer/snps.{ext}"
+      for k in ("SR", "LR") for ext in ("loci", "aln", "outliers")],
+    "SR_Tanglegram/tanglegram_segments.tsv", "SR_Tanglegram/tanglegram.html",
+    "Tophits/SR_network_plot.html", "Tophits/lr_network_plot.html",
+]
+
+
+def check_blk8_12(dset):
+    """Every data file of BLK8-BLK12 present and non-empty, and SR tophits
+    with at least one row; returns the tophit row counts."""
+    missing = [f for f in BLK8_12_FILES
+               if not os.path.isfile(os.path.join(dset, f))
+               or os.path.getsize(os.path.join(dset, f)) == 0]
+    if missing:
+        raise RuntimeError(f"BLK8-BLK12 outputs missing or empty: {missing}")
+    rows = {k: sum(1 for _ in open(os.path.join(dset, "Tophits", f"{k}_tophits.tsv"))) - 1
+            for k in ("sr", "lr")}
+    if rows["sr"] < 1:
+        raise RuntimeError("Tophits/sr_tophits.tsv has no rows")
+    return rows
+
+
 def check_tables(sr, lr):
     sr_mi = np.array([float(r[6]) for r in sr])
     sr_srp = np.array([float(r[7]) for r in sr])
@@ -678,10 +712,9 @@ def slice_phase():
     dset = os.path.join(d, "ldw_out")
     rank_mi.K1.reset()
     t0 = time.time()
-    ldweaver_tpu_torch.ldweaver(
+    ldweaver_tpu_torch.ldweaver(  # the default config: BLK1-BLK12
         dset=dset, aln_path=fa, aln_has_all_bases=False, pos=pos,
-        gbk_path=gbk, backend="spmd", max_blk_sz=4096,
-        SnpEff_Annotate=False, device="cuda",
+        gbk_path=gbk, backend="spmd", max_blk_sz=4096, device="cuda",
     )
     torch.cuda.synchronize()
     wall = time.time() - t0
@@ -690,14 +723,46 @@ def slice_phase():
     timings = json.load(open(os.path.join(dset, "timings.json")))
     sr, lr = read_links(dset)
     check_tables(sr, lr)
+    tophit_rows = check_blk8_12(dset)
     spmd = timings["blk5_phases"]["spmd"]
+    blk8_12 = {k: timings.get(k) for k in (
+        "blk8_annotation_tophits", "blk9_tanglegram", "blk10_gwes_explorer",
+        "blk11_network_plot", "blk12_lr_analysis")}
     log(f"slice wall {wall:.1f} s; timings.json: {json.dumps(timings)}")
+    log(f"slice BLK8-BLK12 (s): {json.dumps(blk8_12)}, together"
+        f" {sum(v or 0 for v in blk8_12.values()):.3f} s; tophit rows {tophit_rows}")
     log(f"slice: sr rows {len(sr)}, lr rows {len(lr)}, tiles {spmd['tiles']},"
         f" retries {spmd['retries']}, fallbacks {spmd['fallbacks']},"
         f" K1 launches {launches} {by_bucket}")
+    if None in blk8_12.values():
+        raise RuntimeError(f"a block of BLK8-BLK12 did not run: {blk8_12}")
     if launches < spmd["tiles"] or spmd["tiles"] != 36:
         raise RuntimeError(f"K1 launched {launches} times for {spmd['tiles']} tiles")
     return launches, by_bucket
+
+
+def cli_phase():
+    """The CLI in a subprocess on the small input, on the card."""
+    d = os.path.join(WORK, "cli")
+    os.makedirs(d)
+    fa, pos, gbk = synth_snp_alignment(d, nseq=48, g=200_000, nsnp=3000, seed=1)
+    pos_path = os.path.join(d, "snps.pos")
+    np.savetxt(pos_path, pos, fmt="%d")
+    dset = os.path.join(d, "out")
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-m", "ldweaver_tpu_torch.cli", "run", "--dset", dset,
+         "--aln", fa, "--pos", pos_path, "--gbk", gbk, "--device", "cuda",
+         "--backend", "spmd", "--max-blk-sz", "1024", "--lr-retain-links", "20000"],
+        cwd=REPO, capture_output=True, text=True, timeout=600,
+    )
+    wall = time.time() - t0
+    tophits = os.path.join(dset, "Tophits", "sr_tophits.tsv")
+    log(f"cli: exit {proc.returncode} in {wall:.1f} s;"
+        f" Tophits/sr_tophits.tsv {'present' if os.path.isfile(tophits) else 'missing'}")
+    if proc.returncode != 0 or not os.path.isfile(tophits):
+        log(proc.stdout[-3000:] + proc.stderr[-3000:])
+        raise RuntimeError("the CLI run failed")
 
 
 def device_time_split(fn, top=6):
@@ -863,6 +928,7 @@ def main():
     small_phase("pallas")
     small_phase("jax")
     launches, by_bucket = slice_phase()
+    cli_phase()
     lr, lr_k1 = lr_phase()
     k3_by_shape = compat_phase()
     kernels = []

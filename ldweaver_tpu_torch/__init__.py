@@ -2,32 +2,39 @@
 
 A port of the JAX package `ldweaver_tpu` (which stays the reference): the
 same genome-wide epistasis pipeline, with the all-vs-all Hamming-weighted
-SNP-pair mutual-information sweep on one CUDA device.  The rank-compacted
-MI tile runs in a hand-written CUDA kernel (csrc/rank_mi.cu, wrapped by
-ops/rank_mi.py); host code (ingest, CDS diversity, background model,
-ARACNE, writers, plots) is a copy of the reference package's.  The port
-imports neither JAX nor the reference package.
+SNP-pair mutual-information sweep on one CUDA device.  Every MI tile runs
+in a hand-written CUDA kernel (csrc/*.cu, wrapped by ops/*.py); host code
+(ingest, CDS diversity, background model, ARACNE, annotation, writers,
+plots) is a copy of the reference package's.  The port imports neither
+JAX nor the reference package.
 
-Ported so far: `ldweaver(..., backend="spmd", SnpEff_Annotate=False)`,
-blocks BLK1-BLK7.  Entry points run on device="cuda" unless the caller
-passes device="cpu" (the kernels' plain PyTorch versions).
+`ldweaver(...)` runs all twelve blocks with the reference package's
+defaults (SnpEff_Annotate=True): BLK1-BLK7 with the BLK5 backends "spmd"
+(kernel K1), "jax" (the default), "pallas" (kernel K3) and "numpy", then
+annotation, tophits, tanglegram, GWESExplorer export, network plots and
+the long-range analysis.  Entry points run on device="cuda" unless the
+caller passes device="cpu" (the kernels' plain PyTorch versions).  The
+options still to port raise NotImplementedError naming their ROADMAP.md
+item.  The CLI is `python -m ldweaver_tpu_torch.cli`.
 
 Layer map:
   io/       - FASTA ingest, GenBank/GFF3 parsing, TSV readers/writers
   core/     - SNP tensor, Hamming weights, CDS diversity, MI host helpers,
-              background model, ARACNE, the BLK5 driver
+              background model, ARACNE, long-range analyser, BLK5 driver
   ops/      - the CUDA kernels' wrappers, plain versions and build
-  parallel/ - rank stratification, the MI tile, tile extraction and sweep
+  parallel/ - rank stratification, the MI tile, tile extraction and sweeps
   utils/    - R-compatible numerics (type-7 quantile, Beta MLE, R RNG)
-  pipeline  - the LDWeaver() driver, BLK1-BLK7
+  annotate, tanglegram, trees, plots, viz_html - outputs (host code)
+  pipeline  - the LDWeaver() 12-block driver
 """
 
 __version__ = "0.1.0"
 
 from ldweaver_tpu_torch.config import LDWeaverConfig  # noqa: F401
 
-# Public API; each symbol is a lazy attribute so `import ldweaver_tpu_torch`
-# stays cheap (torch and pandas load when used).
+# Public API, the reference package's names; each symbol is a lazy
+# attribute so `import ldweaver_tpu_torch` stays cheap (torch and pandas
+# load when used).
 _API = {
     "ldweaver": ("ldweaver_tpu_torch.pipeline", "ldweaver"),
     "cleanup": ("ldweaver_tpu_torch.pipeline", "cleanup"),
@@ -44,12 +51,34 @@ _API = {
     "perform_mi_computation": (
         "ldweaver_tpu_torch.core.sweep", "perform_mi_computation"),
     "run_aracne": ("ldweaver_tpu_torch.core.aracne", "run_aracne"),
+    "analyse_long_range_links": (
+        "ldweaver_tpu_torch.pipeline", "analyse_long_range_links"),
+    "perform_annotations": ("ldweaver_tpu_torch.annotate", "perform_annotations"),
+    # the reference NAMESPACE names (perform_snpEff_annotations,
+    # write_output_for_gwes_explorer) as aliases
+    "perform_snpeff_annotations": (
+        "ldweaver_tpu_torch.annotate", "perform_annotations"),
+    "write_gwes_explorer_output": (
+        "ldweaver_tpu_torch.io.writers", "write_gwes_explorer_output"),
+    "write_output_for_gwes_explorer": (
+        "ldweaver_tpu_torch.io.writers", "write_gwes_explorer_output"),
+    "snpdat_to_fa": ("ldweaver_tpu_torch.io.writers", "snpdat_to_fa"),
+    "generate_links_snps_fasta": (
+        "ldweaver_tpu_torch.io.writers", "generate_links_snps_fasta"),
+    "read_top_hits": ("ldweaver_tpu_torch.io.readers", "read_top_hits"),
     "read_long_range_links": (
         "ldweaver_tpu_torch.io.readers", "read_long_range_links"),
     "read_short_range_links": (
         "ldweaver_tpu_torch.io.readers", "read_short_range_links"),
+    "read_annotated_links": (
+        "ldweaver_tpu_torch.io.readers", "read_annotated_links"),
     "make_gwes_plots": ("ldweaver_tpu_torch.plots", "make_gwes_plots"),
     "genomewide_ld_map": ("ldweaver_tpu_torch.plots", "genomewide_ld_map"),
+    "create_network": ("ldweaver_tpu_torch.plots", "create_network"),
+    "create_network_for_gene": (
+        "ldweaver_tpu_torch.plots", "create_network_for_gene"),
+    "create_tanglegram": ("ldweaver_tpu_torch.tanglegram", "create_tanglegram"),
+    "view_tree": ("ldweaver_tpu_torch.trees", "view_tree"),
 }
 
 __all__ = ["LDWeaverConfig", *_API]

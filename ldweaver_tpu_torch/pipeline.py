@@ -1,12 +1,11 @@
-"""The LDWeaver pipeline driver (PyTorch port), blocks BLK1-BLK7.
+"""The LDWeaver pipeline driver (PyTorch port).
 
-Mirrors the orchestration of the reference `LDWeaver()` entry point
-(R/BacGWES.R:69-492) with the same caching / resume-from-artifact
+Mirrors the 12-block orchestration of the reference `LDWeaver()` entry
+point (R/BacGWES.R:69-492) with the same caching / resume-from-artifact
 behaviour (npz/tsv in place of rds), console-log tee, timings.json and the
 cleanup() folder layout.  BLK4 and BLK5 run on `device` (CUDA by
-default); everything else is host code.  BLK8-BLK12 are not ported yet:
-the run needs SnpEff_Annotate=False and then returns after BLK7, as the
-reference package does.
+default); everything else is host code.  With SnpEff_Annotate=False the
+run returns after BLK7, as the reference package does.
 
 Blocks (R/BacGWES.R:77-88):
   BLK1  parse alignment -> SNP tensor
@@ -16,6 +15,11 @@ Blocks (R/BacGWES.R:77-88):
   BLK5  MI computation + background model + ARACNE    *** hot ***
   BLK6  genomewide LD map
   BLK7  GWES plots
+  BLK8  annotation + SR tophits
+  BLK9  tanglegram
+  BLK10 GWESExplorer output
+  BLK11 network plot
+  BLK12 long-range link analysis
   + cleanup
 """
 
@@ -34,12 +38,14 @@ import pandas as pd
 from ldweaver_tpu_torch.config import LDWeaverConfig
 from ldweaver_tpu_torch.core.cds import CdsVar, estimate_variation_in_cds
 from ldweaver_tpu_torch.core.hamming import estimate_hamming_distance_weights
+from ldweaver_tpu_torch.core.lr import analyse_long_range_links_core
 from ldweaver_tpu_torch.core.snp_tensor import SnpData
 from ldweaver_tpu_torch.core.sweep import perform_mi_computation
 from ldweaver_tpu_torch.io import readers
 from ldweaver_tpu_torch.io.fasta import parse_fasta_alignment, parse_fasta_snp_alignment
 from ldweaver_tpu_torch.io.genbank import parse_genbank_file
 from ldweaver_tpu_torch.io.gff import parse_gff_file
+from ldweaver_tpu_torch.io.writers import write_gwes_explorer_output
 from ldweaver_tpu_torch.support import check_supported, resolve_device
 
 
@@ -77,27 +83,29 @@ def ldweaver(
     gff3_path: Optional[str] = None,
     ref_fasta_path: Optional[str] = None,
     validate_ref_ann_lengths: bool = True,
+    snpeff_jar_path: Optional[str] = None,
     config: Optional[LDWeaverConfig] = None,
     backend: str = "jax",
     device="cuda",
     **config_kwargs,
 ):
-    """Run the GWES pipeline through BLK7; everything is saved under
-    `dset`.
+    """Run the full GWES pipeline; everything is saved under `dset`.
 
-    Equivalent of LDWeaver::LDWeaver (R/BacGWES.R:69-492) with
-    SnpEff_Annotate=False.  BLK4 and BLK5 run on `device` ("cuda", or
-    "cpu" for the plain PyTorch versions of the kernels).  `backend`
-    picks the BLK5 sweep as in the JAX package: "spmd" (the r-stratified
-    tile sweep on kernel K1), or the compat backends "jax" (the default,
-    f32 PyTorch tiles), "pallas" (kernel K3) and "numpy" (the float64
-    oracle, which also computes BLK4 on the host).  Returns the reduced
-    short-range link table.
+    Equivalent of LDWeaver::LDWeaver (R/BacGWES.R:69-492).  BLK4 and BLK5
+    run on `device` ("cuda", or "cpu" for the plain PyTorch versions of
+    the kernels).  `backend` picks the BLK5 sweep as in the JAX package:
+    "spmd" (the r-stratified tile sweep on kernel K1), or the compat
+    backends "jax" (the default, f32 PyTorch tiles), "pallas" (kernel K3)
+    and "numpy" (the float64 oracle, which also computes BLK4 on the
+    host).  BLK8-BLK12 (annotation, tophits, tanglegram, GWESExplorer
+    export, network plot, LR analysis) run with SnpEff_Annotate=True, the
+    default; snpEff itself runs when `snpeff_jar_path` and `java` exist,
+    the built-in annotator otherwise.  Returns the reduced short-range
+    link table.
     """
     cfg = config or LDWeaverConfig(**config_kwargs)
     check_supported(
         backend=backend, n_devices=cfg.n_devices, sr_reduce=cfg.sr_reduce,
-        snpeff_annotate=cfg.SnpEff_Annotate,
     )
     device = resolve_device(device)
     t_global = time.time()
@@ -160,7 +168,7 @@ def ldweaver(
     try:
         return _ldweaver_body(
             dset, aln_path, aln_has_all_bases, pos, gbk_path, gff3_path,
-            ref_fasta_path, validate_ref_ann_lengths,
+            ref_fasta_path, validate_ref_ann_lengths, snpeff_jar_path,
             cfg, backend, device, order_links, tee, t_global, _stage,
             _dump_timings,
         )
@@ -174,7 +182,7 @@ def ldweaver(
 
 def _ldweaver_body(
     dset, aln_path, aln_has_all_bases, pos, gbk_path, gff3_path,
-    ref_fasta_path, validate_ref_ann_lengths,
+    ref_fasta_path, validate_ref_ann_lengths, snpeff_jar_path,
     cfg, backend, device, order_links, tee, t_global, _stage, _dump_timings,
 ):
     with contextlib.redirect_stdout(tee):
@@ -240,6 +248,10 @@ def _ldweaver_body(
             os.path.join(dset, "Temp/sr_links.tsv"),
             os.path.join(dset, "sr_links.tsv"),
         )
+        tophits_path = _first_existing(
+            os.path.join(dset, "Tophits/sr_tophits.tsv"),
+            os.path.join(dset, "sr_tophits.tsv"),
+        )
 
         # ---- BLK1: alignment -> SNP tensor (R/BacGWES.R:279-303)
         print("\n#################### BLOCK 1 ####################\n")
@@ -293,8 +305,10 @@ def _ldweaver_body(
                 if cfg.save_additional_outputs:
                     with open(ann_cache, "wb") as fh:
                         pickle.dump(gbk, fh)
+            cds_features = gbk.cds
             cds_starts, cds_ends = gbk.cds_ranges()
             ref_seq = gbk.sequence
+            genome_name = gbk.name
             if snp_data.g is None:
                 snp_data.g = ref_g  # R/BacGWES.R:337-342
                 print(f"Extracted ref genome length {ref_g} from genbank...")
@@ -312,10 +326,19 @@ def _ldweaver_body(
                 if cfg.save_additional_outputs:
                     with open(ann_cache, "wb") as fh:
                         pickle.dump(gff, fh)
+            cds_features = [
+                f for f in gff.features if f.type.lower() == "cds"
+            ]
             cds_starts, cds_ends = gff.cds_ranges()
             ref_seq = gff.ref
+            genome_name = gff.seqid
             if snp_data.g is None:
                 snp_data.g = gff.g
+
+        # tanglegram locus lookup scans EVERY feature type, not just CDS
+        # (R/createTanglegram.R:88-137 walks genes/cds/exons/transcripts/
+        # other_features)
+        all_features = gbk.features if gbk is not None else gff.features
 
         if cfg.save_additional_outputs and not os.path.exists(snp_path):
             snp_data.save_npz(snp_path)
@@ -461,12 +484,208 @@ def _ldweaver_body(
         make_gwes_plots(sr_struct, dset, are_srlinks_ordered=order_links)
         stage7.__exit__()
 
-        # BLK8-BLK12 run only with SnpEff_Annotate=True, which
-        # check_supported refused (R/BacGWES.R:422-438)
+        # ---- BLK8: annotation + tophits (R/BacGWES.R:422-438)
+        print("\n#################### BLOCK 8 ####################\n")
+        if not cfg.SnpEff_Annotate:
+            cleanup(dset)
+            _dump_timings()
+            print(
+                f"\n** All done in {(time.time() - t_global) / 60:.3f} m **"
+            )
+            return sr_df
+
+        stage8 = _stage("blk8_annotation_tophits"); stage8.__enter__()
+        from ldweaver_tpu_torch.annotate import perform_annotations
+
+        if not os.path.exists(tophits_path):
+            tophits = perform_annotations(
+                dset_name=dset,
+                annotation_folder=dset,
+                snp_data=snp_data,
+                cds_var=cds_var,
+                links_df=sr_df,
+                genome_name=genome_name,
+                g=snp_data.g,
+                cds_features=cds_features,
+                ref_seq=ref_seq,
+                snpeff_jar=snpeff_jar_path,
+                gbk_path=gbk_path,
+                gff_path=gff3_path,
+                ref_path=ref_fasta_path,
+                tophits_path=tophits_path,
+                max_tophits=cfg.max_tophits,
+                links_type="SR",
+            )
+        else:
+            print("Loading previous top hits")
+            tophits = readers.read_top_hits(tophits_path)
+        stage8.__exit__()
+
+        # ---- BLK9: tanglegram (R/BacGWES.R:441-448)
+        if cfg.tanglegram_break_segments is not None:
+            print("\n#################### BLOCK 9 ####################\n")
+            stage9 = _stage("blk9_tanglegram"); stage9.__enter__()
+            from ldweaver_tpu_torch.tanglegram import create_tanglegram
+
+            create_tanglegram(
+                tophits,
+                all_features,
+                os.path.join(dset, "SR_Tanglegram"),
+                break_segments=cfg.tanglegram_break_segments,
+            )
+            stage9.__exit__()
+
+        # ---- BLK10: GWESExplorer (R/BacGWES.R:449-458)
+        if cfg.write_gwesExplorer:
+            print("\n#################### BLOCK 10 ####################\n")
+            stage10 = _stage("blk10_gwes_explorer"); stage10.__enter__()
+            write_gwes_explorer_output(
+                snp_data,
+                dict(
+                    pos1=tophits["pos1"].to_numpy(),
+                    pos2=tophits["pos2"].to_numpy(),
+                    len=tophits["len"].to_numpy(),
+                    ARACNE=tophits["ARACNE"].to_numpy(),
+                    MI=tophits["MI"].to_numpy(),
+                    srp=tophits["srp"].to_numpy()
+                    if "srp" in tophits
+                    else tophits["MI"].to_numpy(),
+                ),
+                os.path.join(dset, "SR_GWESExplorer"),
+                links_type="SR",
+            )
+            stage10.__exit__()
+
+        # ---- BLK11: network plot (R/BacGWES.R:461-467)
+        print("\n#################### BLOCK 11 ####################\n")
+        stage11 = _stage("blk11_network_plot"); stage11.__enter__()
+        try:
+            from ldweaver_tpu_torch.plots import create_network
+
+            create_network(
+                tophits,
+                os.path.join(dset, "SR_network_plot.png"),
+                plot_title=f"Networks in short-range tophits for {dset}",
+            )
+        except Exception as e:
+            print(f"network plot skipped: {e}")
+        stage11.__exit__()
+
+        # ---- BLK12: LR analysis (R/BacGWES.R:469-487)
+        if not cfg.perform_SR_analysis_only:
+            print("\n#################### BLOCK 12 ####################\n")
+            stage12 = _stage("blk12_lr_analysis"); stage12.__enter__()
+            if not (
+                os.path.exists(os.path.join(dset, "lr_tophits.tsv"))
+                or os.path.exists(os.path.join(dset, "Tophits/lr_tophits.tsv"))
+            ):
+                analyse_long_range_links(
+                    dset,
+                    lr_save_path,
+                    sr_save_path,
+                    SnpEff_Annotate=cfg.SnpEff_Annotate,
+                    snpeff_jar_path=snpeff_jar_path,
+                    snp_data=snp_data,
+                    cds_var=cds_var,
+                    genome_name=genome_name,
+                    cds_features=cds_features,
+                    ref_seq=ref_seq,
+                    gbk_path=gbk_path,
+                    gff3_path=gff3_path,
+                    ref_fasta_path=ref_fasta_path,
+                    sr_dist=cfg.sr_dist,
+                )
+            else:
+                print("Results from previous LR analysis exist!")
+            stage12.__exit__()
+
         cleanup(dset)
         _dump_timings()
         print(f"\n** All done in {(time.time() - t_global) / 60:.3f} m **")
     return sr_df
+
+
+def analyse_long_range_links(
+    dset: str,
+    lr_links_path: str,
+    sr_links_path: str,
+    SnpEff_Annotate: bool = False,
+    snpeff_jar_path: Optional[str] = None,
+    snp_data=None,
+    cds_var=None,
+    genome_name: str = "",
+    cds_features=None,
+    ref_seq: str = "",
+    gbk_path=None,
+    gff3_path=None,
+    ref_fasta_path=None,
+    max_tophits: int = 500,
+    links_from_spydrpick: bool = False,
+    sr_dist: int = 20000,
+):
+    """BLK12 equivalent of analyse_long_range_links (R/lr_analyser.R:30-187).
+    Host code: reads the link tables, thresholds and ARACNE-prunes the LR
+    links, and annotates them when SnpEff_Annotate and snp_data are given."""
+    os.makedirs(dset, exist_ok=True)
+    lr_links = readers.read_long_range_links(
+        lr_links_path, links_from_spydrpick=links_from_spydrpick, sr_dist=sr_dist
+    )
+    sr_links = readers.read_short_range_links(sr_links_path)
+    result = analyse_long_range_links_core(lr_links, sr_links)
+
+    from ldweaver_tpu_torch.plots import plot_lr_gwes
+
+    plot_lr_gwes(
+        result.links,
+        max(result.thresholds),
+        os.path.join(dset, "lr_gwes.png"),
+    )
+
+    if SnpEff_Annotate and snp_data is not None:
+        from ldweaver_tpu_torch.annotate import perform_annotations
+
+        tophits = perform_annotations(
+            dset_name=dset,
+            annotation_folder=dset,
+            snp_data=snp_data,
+            cds_var=cds_var,
+            links_df=result.links,
+            genome_name=genome_name,
+            g=snp_data.g,
+            cds_features=cds_features,
+            ref_seq=ref_seq,
+            snpeff_jar=snpeff_jar_path,
+            gbk_path=gbk_path,
+            gff_path=gff3_path,
+            ref_path=ref_fasta_path,
+            tophits_path=os.path.join(dset, "lr_tophits.tsv"),
+            max_tophits=max_tophits,
+            links_type="LR",
+        )
+        write_gwes_explorer_output(
+            snp_data,
+            dict(
+                pos1=tophits["pos1"].to_numpy(),
+                pos2=tophits["pos2"].to_numpy(),
+                len=tophits["len"].to_numpy(),
+                ARACNE=tophits["ARACNE"].to_numpy(),
+                MI=tophits["MI"].to_numpy(),
+            ),
+            os.path.join(dset, "LR_GWESExplorer"),
+            links_type="LR",
+        )
+        try:
+            from ldweaver_tpu_torch.plots import create_network
+
+            create_network(
+                tophits,
+                os.path.join(dset, "lr_network_plot.png"),
+                plot_title=f"Networks in long-range tophits for {dset}",
+            )
+        except Exception as e:
+            print(f"lr network plot skipped: {e}")
+        return tophits
+    return result.links
 
 
 def cleanup(dset: str, delete_after_moving: bool = False) -> None:

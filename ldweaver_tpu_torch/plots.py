@@ -6,16 +6,17 @@ ggplot2/heatmap3/igraph outputs:
   * CDS clustering plot      (R/estimateCDSDiversity.R:212-221)
   * genomewide_LDMap         (R/LDSummaryPlot.R:25-131)
   * lr gwes plot             (R/lr_analyser.R:117-127)
+  * create_network           (R/createNetworkPlot.R:28-144)
 
 matplotlib is imported when a figure is drawn.  Where it is not installed
-the figure is skipped with a note; no data output depends on a figure.
-The network plots (BLK11) are not ported yet.
+the figure is skipped with a note; no data output depends on a figure,
+and the network's HTML page is written either way.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 
@@ -237,3 +238,103 @@ def genomewide_ld_map(
     fig.tight_layout()
     fig.savefig(plot_save_path)
     plt.close(fig)
+
+
+def create_network_for_gene(
+    gene: str,
+    annotated_links,
+    netplot_path: str,
+    hops: int = 1,
+    plot_title: str = "",
+) -> None:
+    """1- or 2-hop neighbourhood of one gene from an annotated link table
+    (create_network_for_gene, R/createNetworkPlot.R:169-290)."""
+    df = annotated_links
+    g1 = df["pos1_genreg"].astype(str)
+    g2 = df["pos2_genreg"].astype(str)
+    frontier = {gene}
+    selected = np.zeros(len(df), dtype=bool)
+    for _ in range(max(1, hops)):
+        hit = g1.isin(frontier) | g2.isin(frontier)
+        selected |= hit.to_numpy()
+        frontier = set(g1[hit]) | set(g2[hit])
+    sub = df[selected]
+    if len(sub) == 0:
+        return
+    create_network(
+        sub, netplot_path, plot_title or f"{hops}-hop neighbourhood of {gene}"
+    )
+
+
+def create_network(tophits, netplot_path: str, plot_title: str = "") -> None:
+    """Gene-level arc/network plot of tophits (R/createNetworkPlot.R:28-144):
+    aggregate links to gene pairs, drop self-loops, draw an arc diagram with
+    node size ~ degree and edge width ~ max MI.  The interactive HTML page
+    beside the PNG (same name, .html) is written even where matplotlib is
+    not installed."""
+    import collections
+
+    pairs = collections.Counter()
+    weight: Dict = {}
+    for _, row in tophits.iterrows():
+        g1 = str(row["pos1_genreg"])
+        g2 = str(row["pos2_genreg"])
+        if g1 == g2:
+            continue  # loop-drop (:76-82)
+        key = tuple(sorted((g1, g2)))
+        pairs[key] += 1
+        weight[key] = max(weight.get(key, 0.0), float(row["MI"]))
+    if not pairs:
+        return
+    plt = _pyplot(netplot_path)
+    if plt is not None:
+        genes = sorted({g for k in pairs for g in k})
+        xpos = {g: i for i, g in enumerate(genes)}
+        deg = collections.Counter()
+        for (a, b), c in pairs.items():
+            deg[a] += c
+            deg[b] += c
+        fig, ax = plt.subplots(figsize=(max(6, len(genes) * 0.4), 4.0), dpi=300)
+        wmax = max(weight.values())
+        for (a, b), c in pairs.items():
+            x1, x2 = xpos[a], xpos[b]
+            xm, r = (x1 + x2) / 2, abs(x2 - x1) / 2
+            th = np.linspace(0, np.pi, 50)
+            ax.plot(
+                xm + r * np.cos(th),
+                r * np.sin(th) / max(1, len(genes) / 6),
+                lw=0.5 + 2.5 * weight[(a, b)] / wmax,
+                c="#0868ac",
+                alpha=0.6,
+            )
+        for g in genes:
+            ax.scatter(xpos[g], 0, s=20 + 10 * deg[g], c="#db4325", zorder=3)
+            ax.annotate(
+                g,
+                (xpos[g], 0),
+                rotation=90,
+                fontsize=6,
+                ha="center",
+                va="top",
+                xytext=(0, -8),
+                textcoords="offset points",
+            )
+        ax.set_title(plot_title, fontsize=9)
+        ax.axis("off")
+        fig.tight_layout()
+        fig.savefig(netplot_path)
+        plt.close(fig)
+
+    # interactive companion (the reference ships igraph/ggraph objects a
+    # browser can explore; viz_html.py closes that artifact gap)
+    from ldweaver_tpu_torch.viz_html import write_network_html
+
+    base, _ = os.path.splitext(netplot_path)
+    keys = sorted(pairs)
+    write_network_html(
+        [a for a, _ in keys],
+        [b for _, b in keys],
+        np.array([weight[k] for k in keys]),
+        base + ".html",
+        title=plot_title or "GWES network",
+    )

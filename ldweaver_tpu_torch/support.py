@@ -22,7 +22,6 @@ def check_supported(
     backend: str = "spmd",
     n_devices: Optional[int] = None,
     sr_reduce: str = "auto",
-    snpeff_annotate: bool = False,
     checkpoint_dir: Optional[str] = None,
 ) -> None:
     if backend not in PORTED_BACKENDS:
@@ -41,11 +40,6 @@ def check_supported(
         raise NotImplementedError(
             f"sr_reduce={sr_reduce!r}: the on-device SR reduction is not"
             " ported yet (ROADMAP.md item 7); use 'auto' or 'host'"
-        )
-    if snpeff_annotate:
-        raise NotImplementedError(
-            "SnpEff_Annotate=True runs BLK8-BLK12, which are not ported yet"
-            " (ROADMAP.md item 6); pass SnpEff_Annotate=False"
         )
     if checkpoint_dir is not None:
         raise NotImplementedError(

@@ -21,7 +21,15 @@ random paint over 3 clusters) at 64 genomes x 2,048 SNPs, max_blk_sz=1000
     one side only, srp 3.0008-3.0495 (observed on the CPU).  Observed,
     port "jax" against JAX "jax": 7 of 680 SR rows (srp 3.0009-3.0113),
     MI max abs diff 4.0e-7, 1 of 99,987 LR rows; SR ranks 8 and 9 swap
-    (srp 7.0910 and 7.0904 in the JAX package)."""
+    (srp 7.0910 and 7.0904 in the JAX package).
+
+ARACNE labels on the shared SR rows: the strict `<` of the DPI test
+(core/aracne.py:147) turns f32 MI differences into flipped labels, and the
+reference is itself that sensitive.  So the port's f32 backends must agree
+with JAX "jax" at least as well as the JAX package's own "numpy" (f64)
+agrees with its "jax" (f32) on the same input, less 0.005.  Observed on
+the CPU on this input: JAX "numpy" vs JAX "jax" 1.0 (680 shared rows),
+port "jax" 1.0 (673), port "pallas" 1.0 (671)."""
 
 import os
 
@@ -91,6 +99,15 @@ def test_numpy_backend_byte_identical(runs):
         assert len(a) > 1000 and a == b, name
 
 
+def aracne_agreement(ref_dset, dset):
+    """Share of the SR rows two runs share whose ARACNE labels agree."""
+    key_r, _, ar_r = read_sr(os.path.join(ref_dset, "sr_links.tsv"))
+    key_d, _, ar_d = read_sr(os.path.join(dset, "sr_links.tsv"))
+    lab = dict(zip(key_d, ar_d))
+    shared = [(k, a) for k, a in zip(key_r, ar_r) if k in lab]
+    return np.mean([a == lab[k] for k, a in shared])
+
+
 def sr_srp(path):
     """{(pos1, pos2): srp} of an sr_links.tsv."""
     return {(r[1], r[2]): float(r[7])
@@ -116,6 +133,8 @@ def test_f32_backends_within_reference_fringe(runs, backend):
     assert set(key_j[:10]) == set(key_t[:10])
     for a, b in zip(key_j[:10], key_t[:10]):
         assert a == b or abs(srp[a] - srp[b]) < 0.1, (a, b)
+    own_agree = aracne_agreement(ref, runs["jax", "numpy"])
+    assert aracne_agreement(ref, got) >= own_agree - 0.005
     lr_j = read_lr(os.path.join(ref, "lr_links.tsv"))
     lr_t = read_lr(os.path.join(got, "lr_links.tsv"))
     assert len(lr_j) > 10000

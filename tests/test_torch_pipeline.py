@@ -15,7 +15,14 @@ fit of the background model, so their number grows with the table.
 Observed on the CPU: SR 3 of 3,930 rows on one side only (srp 3.00011 to
 3.00014 against the cutoff 3.0; srp max abs diff 1.7e-3), MI max abs
 diff 2.8e-07, ARACNE agreement 0.9967, top-10 equal; LR 0 of 1,002,270
-rows on one side only, MI max abs diff 5.5e-07."""
+rows on one side only, MI max abs diff 5.5e-07.
+
+The same bounds hold the port's SR-only run (perform_SR_analysis_only)
+and its run on a SNP-only alignment (io/writers.snpdat_to_fa of the JAX
+run's SNP matrix, with `pos`, aln_has_all_bases=False) against the JAX
+package's full run; the SNP-only run's Hamming weights are bit-equal.
+Observed on the CPU: both 3 of 3,930 SR rows on one side only; the
+SNP-only LR table 0 of 1,002,270."""
 
 import os
 
@@ -70,9 +77,9 @@ def test_hdw_bit_equal(runs):
     assert np.array_equal(a, b)
 
 
-def test_sr_links_within_reference_fringe(runs):
-    key_j, mi_j, ar_j = read_sr(os.path.join(runs["jax"], "Temp", "sr_links.tsv"))
-    key_t, mi_t, ar_t = read_sr(os.path.join(runs["torch"], "Temp", "sr_links.tsv"))
+def assert_sr_within_fringe(jax_dset, torch_dset):
+    key_j, mi_j, ar_j = read_sr(os.path.join(jax_dset, "Temp", "sr_links.tsv"))
+    key_t, mi_t, ar_t = read_sr(os.path.join(torch_dset, "Temp", "sr_links.tsv"))
     assert len(key_j) > 100
     assert len(set(key_j) ^ set(key_t)) <= fringe_bound(len(key_j))
     idx_j = {k: i for i, k in enumerate(key_j)}
@@ -86,13 +93,51 @@ def test_sr_links_within_reference_fringe(runs):
     assert key_j[:10] == key_t[:10]
 
 
-def test_lr_links_within_reference_fringe(runs):
-    lr_j = read_lr(os.path.join(runs["jax"], "Temp", "lr_links.tsv"))
-    lr_t = read_lr(os.path.join(runs["torch"], "Temp", "lr_links.tsv"))
+def assert_lr_within_fringe(jax_dset, torch_dset):
+    lr_j = read_lr(os.path.join(jax_dset, "Temp", "lr_links.tsv"))
+    lr_t = read_lr(os.path.join(torch_dset, "Temp", "lr_links.tsv"))
     assert len(lr_j) > 1000
     assert len(set(lr_j) ^ set(lr_t)) <= 2
     common = set(lr_j) & set(lr_t)
     assert max(abs(lr_j[k] - lr_t[k]) for k in common) <= 1.2e-4
+
+
+def test_sr_links_within_reference_fringe(runs):
+    assert_sr_within_fringe(runs["jax"], runs["torch"])
+
+
+def test_lr_links_within_reference_fringe(runs):
+    assert_lr_within_fringe(runs["jax"], runs["torch"])
+
+
+@pytest.mark.parametrize("variant", ["sr_only", "snp_only"])
+def test_variant_runs_within_reference_fringe(runs, tmp_path, variant):
+    """SR-only and SNP-only runs of the port against the JAX package's
+    full run (module docstring)."""
+    import ldweaver_tpu_torch
+    from ldweaver_tpu_torch.core.snp_tensor import SnpData
+    from ldweaver_tpu_torch.io.writers import snpdat_to_fa
+
+    d = os.path.dirname(runs["jax"])
+    kw = dict(gbk_path=os.path.join(d, "ref.gbk"), backend="spmd",
+              SnpEff_Annotate=False, max_blk_sz=1000,
+              save_additional_outputs=True, device="cpu")
+    dset = str(tmp_path / variant)
+    if variant == "sr_only":
+        ldweaver_tpu_torch.ldweaver(dset=dset, aln_path=os.path.join(d, "aln.fa.gz"),
+                                    perform_SR_analysis_only=True, **kw)
+    else:
+        sd = SnpData.load_npz(os.path.join(runs["jax"], "Additional_Outputs",
+                                           "snp_ACGTN.npz"))
+        aln, pos_path = str(tmp_path / "snps.fa"), str(tmp_path / "snps.pos")
+        snpdat_to_fa(sd, aln, pos_path)
+        ldweaver_tpu_torch.ldweaver(dset=dset, aln_path=aln, aln_has_all_bases=False,
+                                    pos=np.loadtxt(pos_path, dtype=np.int64), **kw)
+        hdw = {k: np.load(os.path.join(r, "Additional_Outputs", "hdw.npz"))["hdw"]
+               for k, r in (("jax", runs["jax"]), ("torch", dset))}
+        assert np.array_equal(hdw["jax"], hdw["torch"])
+        assert_lr_within_fringe(runs["jax"], dset)
+    assert_sr_within_fringe(runs["jax"], dset)
 
 
 def test_timings_and_unported_options(runs, tmp_path):
@@ -105,18 +150,17 @@ def test_timings_and_unported_options(runs, tmp_path):
                 "blk5_mi_computation", "blk7_gwes_plots"):
         assert blk in t
     assert t["blk5_phases"]["spmd"]["tiles"] == 6
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ldweaver_tpu_torch.ldweaver(
-            dset=str(tmp_path / "x"), aln_path="unused.fa", gbk_path="u.gbk",
-            device="cpu",
-        )  # SnpEff_Annotate=True by default: BLK8-BLK12
+    # the options still unported raise, with the default config
+    # (SnpEff_Annotate=True) and without it
     for bad in (dict(backend="fast"), dict(sr_reduce="device"),
-                dict(n_devices=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ldweaver_tpu_torch.ldweaver(
-                dset=str(tmp_path / "x"), aln_path="unused.fa",
-                gbk_path="u.gbk", device="cpu", SnpEff_Annotate=False, **bad,
-            )
+                dict(sr_reduce="part"), dict(n_devices=2)):
+        for annotate in (True, False):
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                ldweaver_tpu_torch.ldweaver(
+                    dset=str(tmp_path / "x"), aln_path="unused.fa",
+                    gbk_path="u.gbk", device="cpu", SnpEff_Annotate=annotate,
+                    **bad,
+                )
 
 
 def tile_thresholds(pkg, ranked, valid, hdw, g, sr_dist, lr_prob):
