@@ -32,13 +32,25 @@ Phases (any failure exits nonzero before the final line):
                and the fraction of the bound each kernel reaches;
   4. small   - the port's pipeline on a small synthetic input on the card
                and on the CPU (plain versions): link tables must agree,
-               for backend="spmd", "pallas" and "jax";
+               for backend="spmd", "pallas" and "jax"; for "spmd" the card
+               also runs sr_reduce="host", and its sr_links.tsv and
+               lr_links.tsv must be byte-identical to the default run's,
+               which reduces the SR table on the card;
   5. slice   - the main path, `ldweaver(..., backend="spmd")` with the
-               default config (SnpEff_Annotate=True) through BLK1-BLK12 at
-               616 genomes x 2.2 Mb x 32,768 SNPs: K1's launches, the
-               per-block times, and every data file of BLK8-BLK12 present;
+               default config (SnpEff_Annotate=True, sr_reduce="auto")
+               through BLK1-BLK12 at 616 genomes x 2.2 Mb x 32,768 SNPs:
+               K1's launches, the SR reduction on the card, the per-block
+               times and the BLK5 split, and every data file of
+               BLK8-BLK12 present;
      cli     - `python -m ldweaver_tpu_torch.cli run --device cuda` in a
                subprocess on the small input: exit 0 and the SR tophits;
+     headline- the main path at the JAX package's headline size, 616
+               genomes x 2.2 Mb x 131,072 SNPs, max_blk_sz 4096 (32
+               blocks, 528 tiles), BLK1-BLK7 (SnpEff_Annotate=False):
+               the SR reduction on the card, K1 launched for every tile,
+               the SR pair count equal to an independent count from the
+               kept positions, the per-block times, the BLK5 split and
+               the peak device memory;
   6. lr      - the LR-only sweep `fast_lr_topk`: card against CPU at 64
                genomes x 16,384 SNPs, then the bench.py sweep leg (the
                `synth` recipe at 1024 genomes x 131,072 SNPs, block 4096,
@@ -663,14 +675,29 @@ def small_phase(backend):
     os.makedirs(d)
     fa, pos, gbk = synth_snp_alignment(d, nseq=48, g=200_000, nsnp=3000, seed=1)
     out = {}
-    for dev in ("cuda", "cpu"):
-        dset = os.path.join(d, dev)
+    runs = [("cuda", "cuda", {}), ("cpu", "cpu", {})]
+    if backend == "spmd":
+        runs.append(("cuda_host", "cuda", dict(sr_reduce="host")))
+    for tag, dev, extra in runs:
+        dset = os.path.join(d, tag)
         ldweaver_tpu_torch.ldweaver(
             dset=dset, aln_path=fa, aln_has_all_bases=False, pos=pos,
             gbk_path=gbk, backend=backend, max_blk_sz=1024,
-            SnpEff_Annotate=False, device=dev, lr_retain_links=20000,
+            SnpEff_Annotate=False, device=dev, lr_retain_links=20000, **extra,
         )
-        out[dev] = read_links(dset)
+        out[tag] = read_links(dset)
+    if backend == "spmd":
+        # the SR reduction on the card and on the host: the same bytes
+        modes = {tag: json.load(open(os.path.join(d, tag, "timings.json")))
+                 ["blk5_phases"]["spmd"]["sr_reduce"] for tag in ("cuda", "cuda_host")}
+        same = {}
+        for name in ("sr_links.tsv", "lr_links.tsv"):
+            with open(os.path.join(d, "cuda", "Temp", name), "rb") as a, \
+                    open(os.path.join(d, "cuda_host", "Temp", name), "rb") as b:
+                same[name] = a.read() == b.read()
+        log(f"small input on the card, sr_reduce modes {modes}: byte-identical {same}")
+        if modes != {"cuda": "device", "cuda_host": "host"} or not all(same.values()):
+            raise RuntimeError("the card's device and host SR reductions disagree")
     (sr_c, lr_c), (sr_p, lr_p) = out["cuda"], out["cpu"]
     check_tables(sr_c, lr_c)
     ksr_c = {(r[1], r[2]): float(r[6]) for r in sr_c}
@@ -725,6 +752,7 @@ def slice_phase():
     check_tables(sr, lr)
     tophit_rows = check_blk8_12(dset)
     spmd = timings["blk5_phases"]["spmd"]
+    log(f"slice BLK5: {json.dumps(blk5_split(timings))}")
     blk8_12 = {k: timings.get(k) for k in (
         "blk8_annotation_tophits", "blk9_tanglegram", "blk10_gwes_explorer",
         "blk11_network_plot", "blk12_lr_analysis")}
@@ -738,7 +766,99 @@ def slice_phase():
         raise RuntimeError(f"a block of BLK8-BLK12 did not run: {blk8_12}")
     if launches < spmd["tiles"] or spmd["tiles"] != 36:
         raise RuntimeError(f"K1 launched {launches} times for {spmd['tiles']} tiles")
+    if spmd["sr_reduce"] != "device":
+        raise RuntimeError(f"slice: the SR table reduced on the {spmd['sr_reduce']}")
     return launches, by_bucket
+
+
+def blk5_split(timings):
+    """BLK5's wall and its parts (timings.json, seconds): the sweep
+    (extraction on the card incl. copies, host emission, the on-device SR
+    reduction's passes and host steps), then the background model's
+    finish, ARACNE and the SR table's write."""
+    blk5 = timings["blk5_phases"]
+    spmd = blk5["spmd"]
+    keys = ("sr_reduce", "tiles", "retries", "fallbacks", "sr_pairs", "extract_s",
+            "emit_s", "bg_stats_s", "bg_fit_s", "bg_cand_s", "cand_count", "cand_mb",
+            "bg_order_s")
+    return dict(blk5_mi_computation=timings["blk5_mi_computation"],
+                **{k: spmd.get(k) for k in keys},
+                **{k: blk5.get(k) for k in ("sweep_s", "background_s", "aracne_s",
+                                            "sr_write_s")})
+
+
+def sr_pairs_from_positions(pos, g, sr_dist):
+    """Pairs of distinct sites at circular distance min(d, g - d) <=
+    sr_dist, counted from the sorted positions alone."""
+    p = np.sort(np.asarray(pos, np.int64))
+    near = np.searchsorted(p, p + sr_dist, side="right") - np.arange(1, p.size + 1)
+    wrap = p.size - np.searchsorted(p, p + g - sr_dist, side="left")
+    return int(near.sum() + wrap.sum())
+
+
+HEADLINE_SNPS = 131072
+
+
+def headline_phase(sr_reduce="auto"):
+    """The main path at 616 genomes x 2.2 Mb x 131,072 SNPs, BLK1-BLK7;
+    with sr_reduce="host" the SR table is copied to the host and reduced
+    there instead (for comparison; the script itself runs "auto")."""
+    import torch
+
+    import ldweaver_tpu_torch
+    from ldweaver_tpu_torch.ops import rank_mi
+
+    d = os.path.join(WORK, "headline")
+    os.makedirs(d)
+    t0 = time.time()
+    fa, pos, gbk = synth_snp_alignment(d, nseq=616, g=G, nsnp=HEADLINE_SNPS)
+    log(f"headline input generated in {time.time() - t0:.1f} s")
+    dset = os.path.join(d, "ldw_out")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rank_mi.K1.reset()
+    t0 = time.time()
+    ldweaver_tpu_torch.ldweaver(  # save_additional_outputs: the kept positions
+        dset=dset, aln_path=fa, aln_has_all_bases=False, pos=pos,
+        gbk_path=gbk, backend="spmd", max_blk_sz=4096, SnpEff_Annotate=False,
+        save_additional_outputs=True, sr_reduce=sr_reduce, device="cuda",
+    )
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = rank_mi.K1.launches
+    by_bucket = dict(rank_mi.K1.by_bucket)
+    peak = torch.cuda.max_memory_allocated()
+    timings = json.load(open(os.path.join(dset, "timings.json")))
+    spmd = timings["blk5_phases"]["spmd"]
+    sr, lr = read_links(dset)
+    check_tables(sr, lr)
+    z = np.load(os.path.join(dset, "Additional_Outputs", "snp_ACGTN.npz"))
+    kept, g = z["pos"], int(z["g"])
+    host_sr = sr_pairs_from_positions(kept, g, SR_DIST)
+    blocks = {k: v for k, v in timings.items() if k.startswith("blk") and k != "blk5_phases"}
+    res = dict(wall_s=wall, nsnp=int(kept.size), tiles=spmd["tiles"],
+               k1_launches=launches, k1_by_bucket={str(k): v for k, v in by_bucket.items()},
+               sr_pairs=spmd["sr_pairs"], sr_pairs_from_positions=host_sr,
+               sr_rows=len(sr), lr_rows=len(lr), peak_device_bytes=peak,
+               blocks=blocks, blk5=blk5_split(timings))
+    log(f"headline (616 x 131,072 SNPs, BLK1-BLK7, sr_reduce={sr_reduce!r}):"
+        f" {json.dumps(res)}")
+    log(f"headline: wall {wall:.1f} s, BLK5 {timings['blk5_mi_computation']:.2f} s"
+        f" (extract {spmd['extract_s']} s, emit {spmd['emit_s']} s, SR stats"
+        f" {spmd.get('bg_stats_s')} s, fit {spmd.get('bg_fit_s')} s, candidates"
+        f" {spmd.get('bg_cand_s')} s for {spmd.get('cand_count')}, order"
+        f" {spmd.get('bg_order_s')} s; background"
+        f" {timings['blk5_phases'].get('background_s')} s), peak device memory"
+        f" {peak / 2**30:.2f} GiB")
+    if spmd["sr_reduce"] != ("host" if sr_reduce == "host" else "device"):
+        raise RuntimeError(f"headline: the SR table reduced on the {spmd['sr_reduce']}")
+    if spmd["tiles"] != 528 or launches < 528:
+        raise RuntimeError(f"headline: K1 launched {launches} times for"
+                           f" {spmd['tiles']} tiles (528 expected)")
+    if spmd["sr_pairs"] != host_sr:
+        raise RuntimeError(f"headline: {spmd['sr_pairs']} SR pairs on the card,"
+                           f" {host_sr} from the positions")
+    return by_bucket
 
 
 def cli_phase():
@@ -929,11 +1049,17 @@ def main():
     small_phase("jax")
     launches, by_bucket = slice_phase()
     cli_phase()
+    headline_by_bucket = headline_phase()
     lr, lr_k1 = lr_phase()
     k3_by_shape = compat_phase()
     kernels = []
     # K1 at the spmd slice's S = 616 and the LR sweep's S = 1024, each row
-    # with the launches of the path that runs the kernel at that shape
+    # with the launches of the path that runs the kernel at that shape (the
+    # S = 616 rows also with the headline run's)
+    unmeasured = set(headline_by_bucket) - set(k1_slice)
+    if unmeasured:
+        raise RuntimeError(f"K1 launched on the headline run in buckets not"
+                           f" measured at its shape: {sorted(unmeasured)}")
     for rows, path_launches, path in ((k1_slice, by_bucket, "spmd slice"),
                                       (k1_lr, lr_k1, "LR sweep")):
         unmeasured = set(path_launches) - set(rows)
@@ -941,6 +1067,8 @@ def main():
             raise RuntimeError(f"K1 launched on the {path} in buckets not"
                                f" measured at its shape: {sorted(unmeasured)}")
         for (Rf, Rt, pure), row in rows.items():
+            extra = ({"launches_headline": headline_by_bucket.get((Rf, Rt, pure), 0)}
+                     if rows is k1_slice else {})
             kernels.append(dict(
                 name=(f"rank_mi_tile[Rf={Rf},Rt={Rt},"
                       f"{'pure' if pure else 'general'},S={row['S']}]"),
@@ -951,6 +1079,7 @@ def main():
                 launches=path_launches.get((Rf, Rt, pure), 0),
                 **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                        "bound_by", "bound_frac", "library_ms")},
+                **extra,
             ))
     kernels.append(dict(
         name="fused_tile_stage1[Rf=2,Rt=2,pure,S=1024]", route="cuda",

@@ -82,8 +82,13 @@ def build_parser():
     run.add_argument("--sr-reduce", default="auto",
                      choices=["auto", "device", "part", "host"],
                      help="where the spmd backend's SR background reduction"
-                          " runs: auto and host reduce on the host; device"
-                          " and part are ROADMAP.md item 7")
+                          " runs: auto on the device when the SR table fits"
+                          " LDW_SR_BUDGET or 0.35 of the card's memory (a"
+                          " loud WARNING and the host otherwise); device on"
+                          " the device whatever its size; part as auto on"
+                          " one device (across devices ROADMAP.md item 10);"
+                          " host copies the SR table to the host.  The TSVs"
+                          " are byte-identical in every mode")
 
     lr = sub.add_parser("lr-analyse",
                         help="standalone long-range analysis "
@@ -111,8 +116,8 @@ def build_parser():
 
 def _refuse_unported(args) -> None:
     """The `run` options the reference package has and the port does not
-    yet; the others it has not (backend, n_devices, sr_reduce) are
-    refused by the pipeline's own check."""
+    yet; the others it has not (backend, n_devices) are refused by the
+    pipeline's own check."""
     if args.num_processes or args.coordinator:
         raise NotImplementedError(
             "--coordinator / --num-processes: multi-process runs are not"

@@ -64,10 +64,11 @@ class LDWeaverConfig:
     # links (reference: R/computePairwiseMI.R:92-101, set.seed(1988)).  When
     # False, the exact count is computed instead (deterministic and exact).
     r_compat_lr_sampling: bool = True
-    # where the SR background reduction runs for backend='spmd': the port
-    # reduces on the host; 'auto' and 'host' select that, 'device' and
-    # 'part' are not ported yet.  Outputs are byte-identical across modes
-    # in the reference package.
+    # where the SR background reduction runs for backend='spmd'
+    # (parallel/sr_reduce.py): 'auto' = on the device when the SR table
+    # fits the budget, else the host with a warning; 'device' = always on
+    # the device; 'part' = 'auto' on one device; 'host' = copy the SR
+    # table to the host.  Outputs are byte-identical across modes.
     sr_reduce: str = "auto"
 
     def __post_init__(self):

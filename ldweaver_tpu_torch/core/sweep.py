@@ -3,7 +3,9 @@ R/computePairwiseMI.R:46-145 + per-block `perform_MI_computation_ACGTN`,
 R/computePairwiseMI.R:167-386).
 
 backend "spmd": the r-stratified tile sweep runs on one device
-(parallel/spmd_sweep.py).  The compat backends "jax", "pallas" and
+(parallel/spmd_sweep.py), and with `sr_reduce` "auto" (when the SR table
+fits) or "device" the SR background model reduces there too
+(parallel/sr_reduce.py).  The compat backends "jax", "pallas" and
 "numpy" walk the reference's contiguous `make_blocks` tiling with one MI
 tile per block pair (`sweep_block_pair`): "numpy" the float64 oracle on
 the host, "jax" the f32 PyTorch tile (`core/mi.mi_tile_jax`), "pallas"
@@ -21,7 +23,10 @@ from typing import Callable, List, Optional
 import numpy as np
 
 from ldweaver_tpu_torch.core.aracne import run_aracne
-from ldweaver_tpu_torch.core.background import merge_and_sort_sr_links
+from ldweaver_tpu_torch.core.background import (
+    merge_and_sort_sr_links,
+    merge_and_sort_sr_links_from_candidates,
+)
 from ldweaver_tpu_torch.core import mi as mi_mod
 from ldweaver_tpu_torch.core.mi import (
     LinkTable,
@@ -239,15 +244,9 @@ def perform_mi_computation(
     tile stats).  rxy_compat selects the reference's RXY alias on the
     compat backends."""
     check_supported(
-        backend=backend, n_devices=n_devices, sr_reduce=sr_reduce,
-        checkpoint_dir=checkpoint_dir,
+        backend=backend, n_devices=n_devices, checkpoint_dir=checkpoint_dir,
     )
     device = resolve_device(device)
-    if backend == "spmd" and sr_reduce == "auto":
-        print(
-            "sr_reduce='auto': the SR background model reduces on the host"
-            " (the on-device reduction is ROADMAP.md item 7)"
-        )
     t000 = time.time()
     # the reference rounds the block size to a 1000-multiple (:69); that
     # shapes only the compat tiling, the spmd tile keeps max_blk_sz
@@ -306,8 +305,9 @@ def perform_mi_computation(
                 )
             )
 
+    dev_sr = None
     if backend == "spmd":
-        stats = blk5_sweep(
+        stats, dev_sr = blk5_sweep(
             snp_data,
             np.asarray(hdw, dtype=np.float64),
             cds_var.paint,
@@ -321,6 +321,7 @@ def perform_mi_computation(
             device=device,
             perform_sr_only=perform_sr_analysis_only,
             verbose=verbose,
+            sr_reduce=sr_reduce,
         )
         if phase_timings is not None:
             phase_timings["spmd"] = stats
@@ -354,10 +355,18 @@ def perform_mi_computation(
                 )
 
     _t_sweep_end = time.time()
-    sr_tables = [LinkTable.concat(parts) for parts in sr_links]
-    sr_links_red, sr_check, fits = merge_and_sort_sr_links(
-        nclust, sr_tables, sr_dist, srp_cutoff
-    )
+    if dev_sr is not None:
+        # the SR table never left the device: finish the background model
+        # from the group stats' fits and the candidate links
+        # (byte-identical to the host path; parallel/sr_reduce.py)
+        sr_links_red, sr_check, fits = merge_and_sort_sr_links_from_candidates(
+            nclust, dev_sr.tables, dev_sr.fits, sr_dist, srp_cutoff
+        )
+    else:
+        sr_tables = [LinkTable.concat(parts) for parts in sr_links]
+        sr_links_red, sr_check, fits = merge_and_sort_sr_links(
+            nclust, sr_tables, sr_dist, srp_cutoff
+        )
     _t_bg_end = time.time()
 
     if plt_folder is not None:

@@ -16,8 +16,12 @@ MI tile with kernel K1 and extracts on the device
 `blk5_sweep` uploads the rank codes once, visits the tiles in
 `panel_pair_order(nb, nb)` (the reference's emission order), and recovers
 tiles whose certificate fails with a boosted-capacity retry and, past
-that, an exact full-tile extraction.  The host helpers (SR counts, top-K
-sizing, emission) are copies of the JAX package's.
+that, an exact full-tile extraction.  With the on-device SR reduction
+(`sr_reduce` "auto" when the table fits, or "device") every tile's SR
+pairs stay on the card and `parallel/sr_reduce.run_device_reduction`
+reduces them after the loop; otherwise they are copied to the host and
+emitted there.  The host helpers (SR counts, top-K sizing, emission) are
+copies of the JAX package's.
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import time
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -37,6 +41,11 @@ from ldweaver_tpu_torch.parallel.fast_sweep import (
     tile_masks,
     two_stage_topk,
     wparts,
+)
+from ldweaver_tpu_torch.parallel.sr_reduce import (
+    DeviceSrReduction,
+    run_device_reduction,
+    select_mode,
 )
 
 
@@ -122,8 +131,10 @@ class TileExtract:
     vals: np.ndarray  # [K] f32 desc
     idx: np.ndarray  # [K] i32 flat
     n_sr: int
-    sr_idx: np.ndarray  # [n_sr] i32 row-major
-    sr_vals: np.ndarray  # [n_sr] f32
+    # [n_sr] i32 row-major and f32; device tensors when the sweep keeps
+    # the SR pairs on the card (extract_tile's keep_sr)
+    sr_idx: Union[np.ndarray, torch.Tensor]
+    sr_vals: Union[np.ndarray, torch.Tensor]
     row_max: int = 0  # max LR candidates in any row (retry sizing)
 
 
@@ -245,13 +256,18 @@ class DeviceInputs:
     w32: torch.Tensor  # [nseq] f32 Hamming weights
     wparts: torch.Tensor  # [3, nseq] bf16 split terms of w32
     neff: float  # sum of the weights, rounded to f32
+    # [nsnp_pad] i32 CDS cluster of each site (0 on pad sites), for the
+    # on-device SR reduction
+    paint: Optional[torch.Tensor] = None
 
 
 def device_inputs(ranked: RankedSnps, valid: np.ndarray, hdw: np.ndarray,
-                  neff: float, device) -> DeviceInputs:
+                  neff: float, device,
+                  paint_sorted: Optional[np.ndarray] = None) -> DeviceInputs:
     """Upload what the sweep reads on the device: the stratified rank
     codes (either package's `stratify` output), r, positions, validity,
-    the weights and their bf16 split, and neff."""
+    the weights and their bf16 split, neff and, when given, the sites'
+    clusters in stratified order."""
     w32, parts = wparts(np.asarray(hdw, np.float64))
     return DeviceInputs(
         codes=torch.from_numpy(np.ascontiguousarray(ranked.rank_codes)).to(device),
@@ -261,6 +277,8 @@ def device_inputs(ranked: RankedSnps, valid: np.ndarray, hdw: np.ndarray,
         w32=w32.to(device),
         wparts=parts.to(device).contiguous(),
         neff=float(np.float32(neff)),
+        paint=(None if paint_sorted is None else
+               torch.from_numpy(np.asarray(paint_sorted, np.int32)).to(device)),
     )
 
 
@@ -281,9 +299,12 @@ def tile_mi(dev: DeviceInputs, bi: int, bj: int, block: int, Rf: int,
 def extract_tile(
     dev: DeviceInputs, bi: int, bj: int, *, block: int, sr_dist: int,
     g: int, K: int, k_row: int, prob: float, Rf: int, Rt: int, pure: bool,
+    keep_sr: bool = False,
 ) -> TileExtract:
     """One tile -> SR pairs, LR top-K and certificate (the JAX package's
-    `_extract_body`, spmd_sweep.py:224-326)."""
+    `_extract_body`, spmd_sweep.py:224-326).  With keep_sr the SR pairs
+    stay device tensors (i32 flat indices, f32 MI) for the on-device SR
+    reduction; otherwise they are copied to the host."""
     B = block
     fs, ts = bi * B, bj * B
     mi = tile_mi(dev, bi, bj, B, Rf, Rt, pure)
@@ -296,6 +317,7 @@ def extract_tile(
     # ---- SR: exact row-major compaction
     sr_idx = torch.nonzero(sr_ok.reshape(-1)).reshape(-1)
     sr_vals = mi.reshape(-1)[sr_idx]
+    sr_idx = sr_idx.to(torch.int32)
 
     # ---- LR: exact two-stage top-K + exactness certificate
     neg = torch.where(lr_ok, mi, float("-inf"))
@@ -321,8 +343,8 @@ def extract_tile(
         vals=vals.cpu().numpy(),
         idx=idx.to(torch.int32).cpu().numpy(),
         n_sr=int(sr_idx.numel()),
-        sr_idx=sr_idx.to(torch.int32).cpu().numpy(),
-        sr_vals=sr_vals.cpu().numpy(),
+        sr_idx=sr_idx if keep_sr else sr_idx.cpu().numpy(),
+        sr_vals=sr_vals if keep_sr else sr_vals.cpu().numpy(),
         row_max=int(head[1]),
     )
 
@@ -387,10 +409,17 @@ def blk5_sweep(
     perform_sr_only: bool = False,
     topk_cap: int = 1 << 18,
     verbose: bool = True,
-) -> Dict[str, float]:
+    sr_reduce: str = "auto",
+) -> Tuple[Dict[str, float], Optional[DeviceSrReduction]]:
     """Run BLK5's sweep tile by tile on `device` and emit links in the
     reference's order (panel order over tiles, row-major inside a tile,
-    f64 thresholds).  Returns emission stats."""
+    f64 thresholds).  Returns (stats, DeviceSrReduction or None).
+
+    `sr_reduce` selects where the SR background model's heavy pass runs
+    (`sr_reduce.select_mode`): on the host, every SR pair is emitted into
+    `sr_links`; on the device, no SR pair is emitted, and the caller
+    finishes with `merge_and_sort_sr_links_from_candidates` on the
+    returned reduction (TSVs byte-identical to the host mode)."""
     from ldweaver_tpu_torch.parallel.slabs import panel_pair_order
 
     ranked = stratify(
@@ -411,10 +440,17 @@ def blk5_sweep(
     K, k_row = extract_dims(B, lr_prob, k_max=topk_cap)
     prob = 1.0 if lr_prob is None else lr_prob
     sr_counts = sr_pair_counts(ranked, valid, g, sr_dist)
-    dev = device_inputs(ranked, valid, hdw, neff, device)
+    total_sr = int(sr_counts.sum())
+    device_reduce = select_mode(sr_reduce, total_sr, g, device,
+                                verbose) == "device"
+    dev = device_inputs(ranked, valid, hdw, neff, device,
+                        paint_sorted if device_reduce else None)
+    segs = []  # device mode: (bi, bj, sr_idx, sr_vals) of every tile
 
     stats = dict(tiles=0, retries=0, fallbacks=0, sr_pairs=0, K=K,
-                 k_row=k_row, block=B)
+                 k_row=k_row, block=B,
+                 sr_reduce="device" if device_reduce else "host")
+    primary_parts = "lr" if device_reduce else "both"
     # wall split of the primary tiles: extraction (device work up to the
     # copies of its results to the host) and host emission
     extract_s = emit_s = 0.0
@@ -426,7 +462,10 @@ def blk5_sweep(
         res = extract_tile(
             dev, bi, bj, block=B, sr_dist=int(sr_dist), g=int(g), K=K,
             k_row=k_row, prob=prob, Rf=Rf, Rt=Rt, pure=pure,
+            keep_sr=device_reduce,
         )
+        if device_reduce and res.n_sr:
+            segs.append((bi, bj, res.sr_idx, res.sr_vals))
         t1 = time.perf_counter()
         extract_s += t1 - t0
         f_sl = slice(bi * B, (bi + 1) * B)
@@ -440,22 +479,24 @@ def blk5_sweep(
         )
         stats["tiles"] += 1
         stats["sr_pairs"] += res.n_sr
-        done = emit_tile_extract(res, K=K, **emit_kw)
+        done = emit_tile_extract(res, K=K, parts=primary_parts, **emit_kw)
         emit_s += time.perf_counter() - t1
         if done:
             continue
         # the LR certificate failed, but SR compaction is exact regardless:
         # emit SR once from the primary extraction and redo only the LR side
-        emit_tile_extract(res, K=K, parts="sr", **emit_kw)
+        if not device_reduce:
+            emit_tile_extract(res, K=K, parts="sr", **emit_kw)
         done = False
         if lr_prob is not None:
             # boosted-capacity retry before the full-tile transfer — only
             # when it moves fewer bytes than the B^2 f32 tile
             K2, k2 = retry_dims(res, B, lr_prob, K, k_row)
             if K2 * 8 < B * B * 4:
-                res2 = extract_tile(
+                res2 = extract_tile(  # its SR side is unused: no copy
                     dev, bi, bj, block=B, sr_dist=int(sr_dist), g=int(g),
                     K=K2, k_row=k2, prob=prob, Rf=Rf, Rt=Rt, pure=pure,
+                    keep_sr=True,
                 )
                 stats["retries"] += 1
                 done = emit_tile_extract(res2, K=K2, parts="lr", **emit_kw)
@@ -466,11 +507,20 @@ def blk5_sweep(
                 lr_prob, sr_links, lr_rows_sink, emit_sr=False,
             )
     stats.update(extract_s=round(extract_s, 3), emit_s=round(emit_s, 3))
+    reduction = None
+    if device_reduce:
+        reduction = run_device_reduction(
+            segs, dev.pos, dev.paint, ranked_pos=ranked.pos,
+            paint_sorted=paint_sorted, B=B, nb=nb, g=int(g),
+            sr_dist=int(sr_dist), nclust=len(sr_links), total_sr=total_sr,
+        )
+        stats.update(reduction.stats)
     if verbose:
         print(
             f"BLK5 sweep: {stats['tiles']} tiles on {device},"
             f" {stats['sr_pairs']} sr pairs, {stats['retries']} retries,"
-            f" {stats['fallbacks']} fallbacks",
+            f" {stats['fallbacks']} fallbacks, SR reduction on the"
+            f" {stats['sr_reduce']}",
             flush=True,
         )
-    return stats
+    return stats, reduction

@@ -1,0 +1,389 @@
+"""On-device SR background reduction on one GPU: the port of the JAX
+package's single-device ("flat") path (parallel/sr_reduce.py there).
+
+The SR background model (`core/background.py`, reference
+`mergeNsort_sr_links`, R/computePairwiseMI.R:400-495) needs two things
+from the full per-link SR table, and both reduce to little data:
+
+  * the per-cluster log-log q95-decay fit needs, per (cluster, distance)
+    group, only the group COUNT and the two order statistics around rank
+    floor((n-1)*0.95);
+  * the beta MLE, srp, dedup and cutoff consume only links with POSITIVE
+    residual against the fitted curve (~5% of links), because
+    `merge_and_sort_sr_links` drops `diff <= 0` rows before every f64
+    reduction (R which() semantics, R/computePairwiseMI.R:449).
+
+So `blk5_sweep` keeps every tile's SR pairs (row-major flat index and MI)
+on the card, and two passes replace the copy of the table to the host:
+
+  pass 1, `group_stats`: circular distances are exact half-integers, so
+    the integer key k2 = 2*len = g - |2d - g| groups links exactly like
+    the host's `_len_sort`.  Per cluster, one sort of the int64 key
+    (k2 << 32) | mono(MI) orders every live link (`mono_u32` maps f32 to
+    its order-preserving unsigned bits); group boundaries come from
+    searchsorted over the key grid, and the two order statistics are
+    gathers at rank lo = m - ceil(m/20) (`rank_lo`, integer-exact).  Only
+    the [nclust, 2*sr_dist - 1] counts and order statistics cross to the
+    host.
+  pass 2, `candidates`: the host rebuilds the f64 fits from the stats
+    (`fits_from_group_stats`, bit-equal to the host oracle), turns them
+    into per-(cluster, k2) f32 thresholds rounded DOWN
+    (`threshold_tables`: every link with f64 diff > 0 passes), and one
+    pass compacts the candidate links (gi, gj, MI) with `torch.nonzero`;
+    only those cross to the host.
+
+`candidates_to_tables` puts the candidates into the canonical emission
+order (panel tile order, row-major within a tile), so the downstream f64
+reductions (`core/background.merge_and_sort_sr_links_from_candidates`)
+see the same value sequence as on the host path and the TSVs come out
+byte-identical.  The host helpers are copies of the JAX package's.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import time
+from typing import Dict, List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+_TOP = 1 << 31
+_U32 = (1 << 32) - 1
+_DEAD = (1 << 31) - 1  # sorts after every valid k2
+
+
+# --------------------------------------------------------------------------
+# f32 <-> order-preserving unsigned 32-bit values (held in int64: CUDA
+# has little uint32 support)
+# --------------------------------------------------------------------------
+def mono_u32(v: torch.Tensor) -> torch.Tensor:
+    """Order-preserving f32 -> [0, 2^32) (sign-magnitude to biased): the
+    order matches IEEE numeric order, with -0.0 just below +0.0."""
+    b = v.contiguous().view(torch.int32).to(torch.int64) & _U32
+    return torch.where(b >= _TOP, _U32 - b, b | _TOP)
+
+
+def unmono_f32(u: torch.Tensor) -> torch.Tensor:
+    """The inverse of `mono_u32`, bit-exact."""
+    b = torch.where(u >= _TOP, u & (_TOP - 1), _U32 - u)
+    b = torch.where(b >= _TOP, b - (1 << 32), b)
+    return b.to(torch.int32).view(torch.float32)
+
+
+def rank_lo(n):
+    """floor((n-1) * 0.95) via exact integer arithmetic:
+    floor(19m/20) = m - ceil(m/20) with m = n-1.  Equal to the host's
+    int((n-1)*0.95) for all realistic n."""
+    m = n - 1
+    return m - (m + 19) // 20
+
+
+# --------------------------------------------------------------------------
+# Device passes
+# --------------------------------------------------------------------------
+@dataclasses.dataclass
+class FlatLinks:
+    """Every kept SR link of the sweep as flat device arrays."""
+
+    k2: torch.Tensor  # i32 distance key 2 * circular length
+    mi: torch.Tensor  # f32
+    c1: torch.Tensor  # i32 cluster of the row site
+    c2: torch.Tensor  # i32 cluster of the column site
+    gi: torch.Tensor  # i32 row site (stratified order)
+    gj: torch.Tensor  # i32 column site
+    live: torch.Tensor  # bool: 0 < len < sr_dist
+
+
+def flat_segments(segs: Sequence[Tuple[int, int, torch.Tensor, torch.Tensor]],
+                  pos: torch.Tensor, paint: torch.Tensor, B: int, g: int,
+                  sr_dist: int) -> FlatLinks:
+    """Concatenate the kept SR outputs `(bi, bj, sr_idx, sr_vals)` of
+    one or more tiles into flat per-link arrays.  Live applies the
+    background model's STRICT 0 < len < sr_dist filter
+    (R/computePairwiseMI.R:417-419): k2 in [1, 2*sr_dist - 1].  The int32
+    key needs g < 2^30."""
+    dev = pos.device
+    counts = [int(s[2].numel()) for s in segs]
+    total = sum(counts)
+    i32 = torch.int32
+    idx = torch.cat([s[2].to(i32) for s in segs])
+    mi = torch.cat([s[3] for s in segs])
+    reps = torch.tensor(counts, dtype=torch.int64, device=dev)
+
+    def per_link(col):
+        return torch.repeat_interleave(
+            torch.tensor([s[col] for s in segs], dtype=i32, device=dev), reps,
+            output_size=total)
+
+    gi = per_link(0) * B + torch.div(idx, B, rounding_mode="floor")
+    gj = per_link(1) * B + idx % B
+    del idx
+    diff = pos.index_select(0, gj) - pos.index_select(0, gi)
+    d = torch.where(diff < 0, diff + g, diff)
+    del diff
+    k2 = g - torch.abs(2 * d - g)  # == 2 * circular_len, exact integer
+    del d
+    live = (k2 >= 1) & (k2 <= 2 * sr_dist - 1)
+    return FlatLinks(k2=k2, mi=mi, c1=paint.index_select(0, gi),
+                     c2=paint.index_select(0, gj), gi=gi, gj=gj, live=live)
+
+
+def group_stats(flat: FlatLinks, sr_dist: int,
+                nclust: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Pass 1: per-(cluster, k2) group count and the two order statistics
+    around rank floor((n-1)*0.95), as numpy [nclust, 2*sr_dist - 1]
+    arrays (i32 counts, f32 values).  Every link is sorted, non-members
+    and dead links under the _DEAD key, so empty groups gather the same
+    elements as the JAX package's two-key sort."""
+    dev = flat.mi.device
+    mono = mono_u32(flat.mi)
+    base = torch.where(flat.live, flat.k2, _DEAD).to(torch.int64)
+    grid = torch.arange(1, 2 * sr_dist, dtype=torch.int64, device=dev)
+    lo_keys, hi_keys = grid << 32, (grid + 1) << 32
+    F = base.numel()
+    ns, xlo, xhi = [], [], []
+    for c in range(1, nclust + 1):
+        member = (flat.c1 == c) | (flat.c2 == c)
+        ks = torch.sort((torch.where(member, base, _DEAD) << 32) | mono).values
+        starts = torch.searchsorted(ks, lo_keys)
+        n = torch.searchsorted(ks, hi_keys) - starts
+        lo = rank_lo(n).clamp(min=0)
+        hi = torch.minimum(lo + 1, (n - 1).clamp(min=0))
+        i_lo = (starts + lo).clamp(0, F - 1)
+        i_hi = (starts + hi).clamp(0, F - 1)
+        ns.append(n)
+        xlo.append(unmono_f32(ks[i_lo] & _U32))
+        xhi.append(unmono_f32(ks[i_hi] & _U32))
+        del ks
+    return (torch.stack(ns).to(torch.int32).cpu().numpy(),
+            torch.stack(xlo).cpu().numpy(), torch.stack(xhi).cpu().numpy())
+
+
+def candidates(flat: FlatLinks, T: np.ndarray, sr_dist: int,
+               nclust: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Pass 2: every live link whose MI clears ANY member cluster's
+    f32-rounded-down threshold at its distance key, as host (gi, gj, mi)
+    in ascending flat order (`jnp.nonzero`'s)."""
+    Td = torch.from_numpy(np.ascontiguousarray(T, np.float32)).to(flat.mi.device)
+    k2c = flat.k2.clamp(0, 2 * sr_dist)
+    keep = torch.zeros_like(flat.live)
+    for c in range(1, nclust + 1):
+        thr = Td[c - 1].index_select(0, k2c)
+        keep |= ((flat.c1 == c) | (flat.c2 == c)) & (flat.mi >= thr)
+        del thr
+    idx = torch.nonzero(keep & flat.live).reshape(-1)
+    return (flat.gi[idx].cpu().numpy(), flat.gj[idx].cpu().numpy(),
+            flat.mi[idx].cpu().numpy())
+
+
+# --------------------------------------------------------------------------
+# Host side: exact f64 fits from the stats, thresholds, tables
+# --------------------------------------------------------------------------
+def fits_from_group_stats(ns: np.ndarray, xlo: np.ndarray, xhi: np.ndarray,
+                          sr_dist: int) -> Dict[int, object]:
+    """Per-cluster ClusterFit from the device group stats, bit-equal to
+    `fit_cluster_background` over the full link multiset: the type-7 q95
+    needs only (n, x_lo, x_hi) per group and f64 interpolation, and the
+    log-log OLS sees the identical (uniq, q95) rows."""
+    from ldweaver_tpu_torch.core.background import _fit_from_q95
+
+    nclust = ns.shape[0]
+    grid = np.arange(1, 2 * sr_dist, dtype=np.int64)
+    fits: Dict[int, object] = {}
+    for ci in range(1, nclust + 1):
+        n = ns[ci - 1].astype(np.int64)
+        sel = n > 0
+        if not sel.any():
+            continue
+        nn = n[sel]
+        h = (nn - 1) * 0.95
+        lo = np.floor(h).astype(np.int64)
+        # the device gathered ranks with the integer identity; it must
+        # agree with the f64 host rank for the stats to be the right
+        # order statistics
+        if not np.array_equal(lo, rank_lo(nn)):
+            raise RuntimeError("rank identity violated")
+        v_lo = xlo[ci - 1][sel].astype(np.float64)
+        v_hi = xhi[ci - 1][sel].astype(np.float64)
+        # n == 1 assigns v[0] directly (preserves -0.0 bit-exactly, like
+        # the host oracle's special case); otherwise the oracle's interp
+        q95 = np.where(nn == 1, v_lo, v_lo + (h - lo) * (v_hi - v_lo))
+        uniq = grid[sel] / 2.0
+        fits[ci] = _fit_from_q95(uniq, q95)
+    return fits
+
+
+def threshold_tables(fits: Dict[int, object], nclust: int,
+                     sr_dist: int) -> np.ndarray:
+    """[nclust, 2*sr_dist + 1] f32 thresholds T[c-1][k2]: the fitted
+    curve at each distance key under the reference's `mean_dist[len]`
+    index-by-value quirk (background.fit_lookup), rounded DOWN to f32 so
+    MI >= T catches every link with f64 MI - fitted > 0.  Out-of-range
+    keys (incl. the strict len == sr_dist and len <= 0 exclusions) and
+    clusters without a fit get +inf (never candidates; the oracle drops
+    them identically: NaN lookup -> NaN diff -> which() drops)."""
+    T = np.full((nclust, 2 * sr_dist + 1), np.inf, dtype=np.float32)
+    k2 = np.arange(1, 2 * sr_dist, dtype=np.int64)
+    for ci, fit in fits.items():
+        idx = (k2 >> 1) - 1  # trunc(len) - 1, the 1-based index quirk
+        ok = (idx >= 0) & (idx < fit.fitted.size)
+        v64 = fit.fitted[idx[ok]]
+        v32 = v64.astype(np.float32)
+        over = v32.astype(np.float64) > v64
+        v32[over] = np.nextafter(v32[over], np.float32(-np.inf))
+        row = np.full(2 * sr_dist + 1, np.inf, dtype=np.float32)
+        row[k2[ok]] = v32
+        T[ci - 1] = row
+    return T
+
+
+def candidates_to_tables(
+    gi: np.ndarray, gj: np.ndarray, mi: np.ndarray, count: int,
+    ranked_pos: np.ndarray, paint_sorted: np.ndarray,
+    g: int, B: int, nb: int, nclust: int,
+) -> List[object]:
+    """Candidates -> per-cluster LinkTables in the CANONICAL emission
+    order: tiles in panel_pair_order(nb, nb), row-major within a tile,
+    with the same orientation normalisation as `_emit_pairs` (pos2 from
+    the row site, pos1 from the column site, swapped to pos1 < pos2).
+    This makes each cluster's candidate table an ordered superset of the
+    host path's per-cluster concatenation, so the positive-residual
+    restriction downstream is value-for-value identical."""
+    from ldweaver_tpu_torch.core.mi import LinkTable, circular_len
+    from ldweaver_tpu_torch.parallel.slabs import panel_pair_order
+
+    gi = np.asarray(gi[:count], np.int64)
+    gj = np.asarray(gj[:count], np.int64)
+    mi = np.asarray(mi[:count], np.float64)
+    rank = np.empty((nb, nb), np.int64)
+    for t, (bi, bj) in enumerate(panel_pair_order(nb, nb)):
+        rank[bi, bj] = t
+    key = rank[gi // B, gj // B] * (B * B) + (gi % B) * B + (gj % B)
+    o = np.argsort(key, kind="stable")
+    gi, gj, mi = gi[o], gj[o], mi[o]
+    pos2 = ranked_pos[gi]
+    pos1 = ranked_pos[gj]
+    c2 = paint_sorted[gi]
+    c1 = paint_sorted[gj]
+    swap = pos1 > pos2
+    pos1_n = np.where(swap, pos2, pos1)
+    pos2_n = np.where(swap, pos1, pos2)
+    c1_n = np.where(swap, c2, c1)
+    c2_n = np.where(swap, c1, c2)
+    lens = circular_len(pos1_n, pos2_n, g)
+    tables = []
+    for c in range(1, nclust + 1):
+        m = (c1_n == c) | (c2_n == c)
+        tables.append(
+            LinkTable(
+                pos1=pos1_n[m], pos2=pos2_n[m], clust1=c1_n[m],
+                clust2=c2_n[m], len=lens[m], MI=mi[m],
+            )
+        )
+    return tables
+
+
+# --------------------------------------------------------------------------
+# Mode selection and the entry point
+# --------------------------------------------------------------------------
+def select_mode(sr_reduce: str, total_sr: int, g: int, device,
+                verbose: bool = True) -> str:
+    """"device" or "host": where `blk5_sweep` reduces the SR table (the
+    JAX package's rules, spmd_sweep.py:1106-1165, on one device).  The
+    kept pairs take 8 bytes each (i32 index, f32 MI) against
+    LDW_SR_BUDGET or 0.35 of the card's memory (4 GiB without one).
+    g >= 2^30 would overflow the int32 distance key: always the host.
+    "auto" over budget warns and takes the host; "part" on one device is
+    "device" when it fits, else the host; "device" ignores the budget."""
+    from ldweaver_tpu_torch.parallel.slabs import auto_budget
+
+    env_budget = os.environ.get("LDW_SR_BUDGET")
+    if env_budget:
+        budget = int(env_budget)
+    else:
+        cap = auto_budget(device)
+        budget = int(cap * 0.35) if cap else (4 << 30)
+    sr_bytes = 8 * int(total_sr)
+    fits = sr_bytes <= budget
+    if g >= 1 << 30:
+        if sr_reduce in ("device", "part") and verbose:
+            print(f"sr_reduce={sr_reduce!r} ignored: g >= 2^30 overflows the"
+                  " int32 distance key; using the host path", flush=True)
+        return "host"
+    if sr_reduce == "host":
+        return "host"
+    if sr_reduce == "device":
+        return "device"
+    mode = "device" if fits else "host"
+    if sr_reduce == "part":
+        if verbose or mode == "host":
+            print(f"sr_reduce='part' on one device: using the"
+                  f" {'device' if fits else 'HOST'} path instead (partitioning"
+                  " cannot reduce per-device residency without more devices).",
+                  flush=True)
+    elif mode == "host":  # auto
+        print(f"WARNING: SR outputs ({sr_bytes / 1e9:.1f} GB) exceed the"
+              f" device budget ({budget / 1e9:.1f} GB): falling back to the"
+              " HOST SR reduction, which copies the full SR table to the host."
+              "  Raise LDW_SR_BUDGET to keep the reduction on the device.",
+              flush=True)
+    return mode
+
+
+@dataclasses.dataclass
+class DeviceSrReduction:
+    """Everything `merge_and_sort_sr_links_from_candidates` needs."""
+
+    fits: Dict[int, object]
+    tables: List[object]
+    stats: Dict[str, float]
+
+
+def run_device_reduction(
+    segs: Sequence[Tuple[int, int, torch.Tensor, torch.Tensor]],
+    pos_dev: torch.Tensor, paint_dev: torch.Tensor, *,
+    ranked_pos: np.ndarray, paint_sorted: np.ndarray,
+    B: int, nb: int, g: int, sr_dist: int, nclust: int, total_sr: int,
+) -> DeviceSrReduction:
+    """Run both device passes and the host fit over the kept per-tile SR
+    outputs `segs` = [(bi, bj, sr_idx, sr_vals)] of the sweep, returning
+    the fits and the candidate tables in canonical order.  Stats (wall
+    seconds): bg_stats_s (flatten + pass 1 + its copy), bg_fit_s (host
+    fits and thresholds), bg_cand_s (pass 2 + its copies), bg_order_s
+    (canonical order); cand_count, cand_mb (bytes of the copied
+    candidates)."""
+    from ldweaver_tpu_torch.core.mi import LinkTable
+
+    stats: Dict[str, float] = {}
+    if total_sr == 0 or not segs:
+        empty = [
+            LinkTable(*(np.zeros(0, np.int64),) * 4, np.zeros(0), np.zeros(0))
+            for _ in range(nclust)
+        ]
+        return DeviceSrReduction(fits={}, tables=empty, stats=stats)
+
+    t0 = time.perf_counter()
+    flat = flat_segments(segs, pos_dev, paint_dev, B, int(g), int(sr_dist))
+    ns, xlo, xhi = group_stats(flat, sr_dist, nclust)
+    stats["bg_stats_s"] = round(time.perf_counter() - t0, 3)
+
+    t0 = time.perf_counter()
+    fits = fits_from_group_stats(ns, xlo, xhi, sr_dist)
+    T = threshold_tables(fits, nclust, sr_dist)
+    stats["bg_fit_s"] = round(time.perf_counter() - t0, 3)
+
+    t0 = time.perf_counter()
+    gi, gj, mi = candidates(flat, T, sr_dist, nclust)
+    count = int(gi.size)
+    stats["bg_cand_s"] = round(time.perf_counter() - t0, 3)
+    stats["cand_count"] = count
+    stats["cand_mb"] = round(12 * count / 1e6, 1)
+
+    t0 = time.perf_counter()
+    tables = candidates_to_tables(
+        gi, gj, mi, count, ranked_pos, paint_sorted, g, B, nb, nclust
+    )
+    stats["bg_order_s"] = round(time.perf_counter() - t0, 3)
+    return DeviceSrReduction(fits=fits, tables=tables, stats=stats)

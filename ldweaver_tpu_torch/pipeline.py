@@ -104,9 +104,7 @@ def ldweaver(
     link table.
     """
     cfg = config or LDWeaverConfig(**config_kwargs)
-    check_supported(
-        backend=backend, n_devices=cfg.n_devices, sr_reduce=cfg.sr_reduce,
-    )
+    check_supported(backend=backend, n_devices=cfg.n_devices)
     device = resolve_device(device)
     t_global = time.time()
     timings = {}

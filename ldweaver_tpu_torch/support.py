@@ -21,7 +21,6 @@ _BACKEND_ITEMS = {"fast": 9}
 def check_supported(
     backend: str = "spmd",
     n_devices: Optional[int] = None,
-    sr_reduce: str = "auto",
     checkpoint_dir: Optional[str] = None,
 ) -> None:
     if backend not in PORTED_BACKENDS:
@@ -35,11 +34,6 @@ def check_supported(
     if n_devices is not None and n_devices > 1:
         raise NotImplementedError(
             "n_devices > 1: multi-GPU is not ported yet (ROADMAP.md item 10)"
-        )
-    if sr_reduce in ("device", "part"):
-        raise NotImplementedError(
-            f"sr_reduce={sr_reduce!r}: the on-device SR reduction is not"
-            " ported yet (ROADMAP.md item 7); use 'auto' or 'host'"
         )
     if checkpoint_dir is not None:
         raise NotImplementedError(

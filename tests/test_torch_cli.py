@@ -84,7 +84,8 @@ def test_standalone_commands_byte_identical(run_dset, tmp_path, cmd):
 @pytest.mark.parametrize("flags", [
     ["--coordinator", "localhost:1234"], ["--num-processes", "2"],
     ["--device-budget-bytes", "1000000"], ["--pipeline-depth", "2"],
-    ["--backend", "fast"], ["--n-devices", "2"], ["--sr-reduce", "device"],
+    ["--backend", "fast"], ["--n-devices", "2"],
+    ["--sr-reduce", "part", "--n-devices", "2"],
 ])
 def test_unported_flags_raise(tmp_path, flags):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -152,7 +152,8 @@ def test_sweep_retry_and_fallback_match_jax():
                     sink, block=256, topk_cap=64, verbose=False, **kw)
         return rows, sr_links, out
 
-    rows_t, sr_t, stats = run(tss.blk5_sweep, device=torch.device("cpu"))
+    rows_t, sr_t, (stats, _) = run(tss.blk5_sweep, device=torch.device("cpu"),
+                                   sr_reduce="host")
     rows_j, sr_j, _ = run(jss.spmd_blk5_sweep, sr_reduce="host")
     assert stats["retries"] >= 1 and stats["fallbacks"] >= 1, stats
     assert [r[:2] for r in rows_t] == [r[:2] for r in rows_j]
