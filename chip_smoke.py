@@ -32,10 +32,19 @@ Phases (any failure exits nonzero before the final line):
                and the fraction of the bound each kernel reaches;
   4. small   - the port's pipeline on a small synthetic input on the card
                and on the CPU (plain versions): link tables must agree,
-               for backend="spmd", "pallas" and "jax"; for "spmd" the card
-               also runs sr_reduce="host", and its sr_links.tsv and
-               lr_links.tsv must be byte-identical to the default run's,
-               which reduces the SR table on the card;
+               for backend="spmd", "pallas", "jax" and "fast"; for "spmd"
+               the card also runs sr_reduce="host", and its sr_links.tsv
+               and lr_links.tsv must be byte-identical to the default
+               run's, which reduces the SR table on the card; for "fast"
+               the card also runs pipeline_depth=1, backend="spmd" and a
+               run whose tile dispatches raise on any host sync
+               (torch.cuda.set_sync_debug_mode("error")), each
+               byte-identical to the fast run (depth 4);
+     resume  - on the small input, backend="fast" and backend="spmd"
+               with sr_reduce="device", each crashed after its first
+               checkpoint (the checkpoint save patched to raise) and run
+               again in the same dset: the rerun replays >= 1 tile from
+               dset/mi_chkpt and writes byte-identical TSVs;
   5. slice   - the main path, `ldweaver(..., backend="spmd")` with the
                default config (SnpEff_Annotate=True, sr_reduce="auto")
                through BLK1-BLK12 at 616 genomes x 2.2 Mb x 32,768 SNPs:
@@ -43,7 +52,8 @@ Phases (any failure exits nonzero before the final line):
                times and the BLK5 split, and every data file of
                BLK8-BLK12 present;
      cli     - `python -m ldweaver_tpu_torch.cli run --device cuda` in a
-               subprocess on the small input: exit 0 and the SR tophits;
+               subprocess on the small input, with --backend spmd and
+               with the default backend (fast): exit 0 and the SR tophits;
      headline- the main path at the JAX package's headline size, 616
                genomes x 2.2 Mb x 131,072 SNPs, max_blk_sz 4096 (32
                blocks, 528 tiles), BLK1-BLK7 (SnpEff_Annotate=False):
@@ -51,10 +61,21 @@ Phases (any failure exits nonzero before the final line):
                the SR pair count equal to an independent count from the
                kept positions, the per-block times, the BLK5 split and
                the peak device memory;
+     headline fast - the same input through `ldweaver(..., backend="fast",
+               device_budget_bytes=50_331_648)` (48 MiB: the rank codes
+               stream through an 11-slot slab pool in panels of 9),
+               BLK1-BLK7: sr_links.tsv byte-identical to the headline
+               spmd run's, its lr_links.tsv lines equal as a set, the
+               run streamed, K1 launched for every tile; blk5_phases
+               "fast" (uploads, hits, dispatch / finish / checkpoint
+               seconds), the per-block times and the peak device memory;
   6. lr      - the LR-only sweep `fast_lr_topk`: card against CPU at 64
                genomes x 16,384 SNPs, then the bench.py sweep leg (the
                `synth` recipe at 1024 genomes x 131,072 SNPs, block 4096,
-               top-k 1024): one warm call, 5 timed calls;
+               top-k 1024): one warm call, 5 timed calls; then the same
+               input streamed through a 64 MiB budget
+               (hbm_budget_bytes=67_108_864), whose top-1024 must equal
+               the resident call's (pairs and values);
   7. compat  - the compat path, `ldweaver(..., backend="pallas")` through
                BLK1-BLK7 at 616 genomes x 2.2 Mb x 8,192 SNPs,
                max_blk_sz=4000 (3 blocks, 6 tiles).
@@ -67,6 +88,7 @@ is generated from a seed into `_smoke_run/` (git-ignored) beside this
 file.  The port imports neither JAX nor the JAX package.
 """
 
+import contextlib
 import gzip
 import json
 import os
@@ -678,14 +700,29 @@ def small_phase(backend):
     runs = [("cuda", "cuda", {}), ("cpu", "cpu", {})]
     if backend == "spmd":
         runs.append(("cuda_host", "cuda", dict(sr_reduce="host")))
+    if backend == "fast":
+        runs += [("cuda_depth1", "cuda", dict(pipeline_depth=1)),
+                 ("cuda_spmd", "cuda", dict(backend="spmd")),
+                 ("cuda_no_sync", "cuda", {})]
     for tag, dev, extra in runs:
         dset = os.path.join(d, tag)
-        ldweaver_tpu_torch.ldweaver(
-            dset=dset, aln_path=fa, aln_has_all_bases=False, pos=pos,
-            gbk_path=gbk, backend=backend, max_blk_sz=1024,
-            SnpEff_Annotate=False, device=dev, lr_retain_links=20000, **extra,
-        )
+        with dispatch_must_not_sync(tag == "cuda_no_sync"):
+            ldweaver_tpu_torch.ldweaver(
+                dset=dset, aln_path=fa, aln_has_all_bases=False, pos=pos,
+                gbk_path=gbk, max_blk_sz=1024, SnpEff_Annotate=False, device=dev,
+                lr_retain_links=20000, **{"backend": backend, **extra},
+            )
         out[tag] = read_links(dset)
+    if backend == "fast":
+        same = {tag: {name: tsv_bytes(os.path.join(d, tag), name)
+                      == tsv_bytes(os.path.join(d, "cuda"), name)
+                      for name in ("sr_links.tsv", "lr_links.tsv")}
+                for tag in ("cuda_depth1", "cuda_spmd", "cuda_no_sync")}
+        log(f"small input on the card, fast (depth 4) against depth 1, spmd and"
+            f" a run whose tile dispatches raise on any host sync"
+            f" (torch.cuda.set_sync_debug_mode): byte-identical {same}")
+        if not all(v for by_name in same.values() for v in by_name.values()):
+            raise RuntimeError("fast: depth 1, spmd or no-sync TSVs differ from depth 4's")
     if backend == "spmd":
         # the SR reduction on the card and on the host: the same bytes
         modes = {tag: json.load(open(os.path.join(d, tag, "timings.json")))
@@ -719,6 +756,94 @@ def small_phase(backend):
             and lr_only <= max(2, round(2 / 970 * len(lr_p)))
             and sr_diff <= 1.2e-4 and lr_diff <= 1.2e-4 and top10):
         raise RuntimeError(f"backend={backend!r}: card and CPU link tables disagree")
+    return res
+
+
+@contextlib.contextmanager
+def dispatch_must_not_sync(on):
+    """While on, every FastTileRunner.dispatch runs under
+    torch.cuda.set_sync_debug_mode("error"): an operation that waits for
+    the card (a blocking copy, .item(), nonzero) raises."""
+    if not on:
+        yield
+        return
+    import torch
+
+    from ldweaver_tpu_torch.core.sweep import FastTileRunner
+
+    orig = FastTileRunner.dispatch
+
+    def strict(self, bi, bj):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return orig(self, bi, bj)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    FastTileRunner.dispatch = strict
+    try:
+        yield
+    finally:
+        FastTileRunner.dispatch = orig
+
+
+def tsv_bytes(dset, name):
+    with open(os.path.join(dset, "Temp", name), "rb") as fh:
+        return fh.read()
+
+
+class SimulatedCrash(Exception):
+    pass
+
+
+def resume_phase():
+    """backend="fast" and "spmd" (device SR mode) on the small input on
+    the card: a run that dies after its first checkpoint, rerun in the
+    same dset, must replay checkpoints and write the uninterrupted run's
+    bytes."""
+    import ldweaver_tpu_torch
+    from ldweaver_tpu_torch.core import sweep as tsweep
+
+    d = os.path.join(WORK, "resume")
+    os.makedirs(d)
+    fa, pos, gbk = synth_snp_alignment(d, nseq=48, g=200_000, nsnp=3000, seed=1)
+    kw = dict(aln_path=fa, aln_has_all_bases=False, pos=pos, gbk_path=gbk,
+              max_blk_sz=1024, SnpEff_Annotate=False, device="cuda",
+              lr_retain_links=20000)
+    orig = tsweep._BlockCheckpoint.save
+    res = {}
+    for backend, extra in (("fast", {}), ("spmd", dict(sr_reduce="device"))):
+        ref = os.path.join(d, f"{backend}_ref")
+        ldweaver_tpu_torch.ldweaver(dset=ref, backend=backend, **extra, **kw)
+        saved = {"n": 0}
+
+        def dying_save(self, key, payload, _saved=saved):
+            if _saved["n"] >= 1:
+                raise SimulatedCrash("after the first checkpoint")
+            orig(self, key, payload)
+            _saved["n"] += 1
+
+        dset = os.path.join(d, backend)
+        tsweep._BlockCheckpoint.save = dying_save
+        try:
+            ldweaver_tpu_torch.ldweaver(dset=dset, backend=backend, **extra, **kw)
+            raise RuntimeError(f"resume {backend}: the run did not crash")
+        except SimulatedCrash:
+            pass
+        finally:
+            tsweep._BlockCheckpoint.save = orig
+        ldweaver_tpu_torch.ldweaver(dset=dset, backend=backend, **extra, **kw)
+        stats = json.load(open(os.path.join(dset, "timings.json")))["blk5_phases"][backend]
+        same = all(tsv_bytes(dset, n) == tsv_bytes(ref, n)
+                   for n in ("sr_links.tsv", "lr_links.tsv"))
+        res[backend] = dict(ckpt_hits=stats["ckpt_hits"], tiles=stats["tiles"],
+                            ckpt_s=stats["ckpt_s"], byte_identical=same,
+                            sr_reduce=stats.get("sr_reduce"))
+        if stats["ckpt_hits"] < 1 or not same:
+            raise RuntimeError(f"resume {backend}: {res[backend]}")
+    log(f"resume on the card (crash after the first checkpoint, rerun): {json.dumps(res)}")
+    if res["spmd"]["sr_reduce"] != "device":
+        raise RuntimeError("resume spmd: the SR table did not reduce on the card")
     return res
 
 
@@ -797,6 +922,7 @@ def sr_pairs_from_positions(pos, g, sr_dist):
 
 
 HEADLINE_SNPS = 131072
+LR_STREAM_BUDGET = 67_108_864  # 64 MiB: 9 slabs of 1024 x 4096, panels of 7
 
 
 def headline_phase(sr_reduce="auto"):
@@ -858,31 +984,99 @@ def headline_phase(sr_reduce="auto"):
     if spmd["sr_pairs"] != host_sr:
         raise RuntimeError(f"headline: {spmd['sr_pairs']} SR pairs on the card,"
                            f" {host_sr} from the positions")
+    return by_bucket, dict(fa=fa, pos=pos, gbk=gbk, dset=dset)
+
+
+HEADLINE_FAST_BUDGET = 50_331_648  # 48 MiB: 11 slabs of 616 x 4096, panels of 9
+
+
+def headline_fast_phase(inputs, depth=4):
+    """backend="fast" on the headline input, the rank codes streamed
+    through a 48 MiB slab budget, `depth` tiles dispatched ahead,
+    BLK1-BLK7, against the headline spmd run (`inputs` from
+    headline_phase)."""
+    import torch
+
+    import ldweaver_tpu_torch
+    from ldweaver_tpu_torch.ops import rank_mi
+
+    dset = os.path.join(WORK, "headline", f"ldw_fast_depth{depth}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rank_mi.K1.reset()
+    t0 = time.time()
+    ldweaver_tpu_torch.ldweaver(
+        dset=dset, aln_path=inputs["fa"], aln_has_all_bases=False,
+        pos=inputs["pos"], gbk_path=inputs["gbk"], backend="fast",
+        max_blk_sz=4096, SnpEff_Annotate=False, pipeline_depth=depth,
+        device_budget_bytes=HEADLINE_FAST_BUDGET, device="cuda",
+    )
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = rank_mi.K1.launches
+    by_bucket = dict(rank_mi.K1.by_bucket)
+    peak = torch.cuda.max_memory_allocated()
+    timings = json.load(open(os.path.join(dset, "timings.json")))
+    blk5 = timings["blk5_phases"]
+    fast = blk5["fast"]
+    sr_same = tsv_bytes(dset, "sr_links.tsv") == tsv_bytes(inputs["dset"], "sr_links.tsv")
+    lr_f = tsv_bytes(dset, "lr_links.tsv").splitlines()
+    lr_s = tsv_bytes(inputs["dset"], "lr_links.tsv").splitlines()
+    lr_same_set = sorted(lr_f) == sorted(lr_s)
+    blocks = {k: v for k, v in timings.items() if k.startswith("blk") and k != "blk5_phases"}
+    res = dict(wall_s=wall, fast=fast, k1_launches=launches,
+               k1_by_bucket={str(k): v for k, v in by_bucket.items()},
+               sr_tsv_byte_identical_to_spmd=sr_same, lr_rows=len(lr_f),
+               lr_set_equal_to_spmd=lr_same_set, lr_row_order_equal=lr_f == lr_s,
+               peak_device_bytes=peak, blocks=blocks,
+               blk5={k: blk5.get(k) for k in ("sweep_s", "background_s", "aracne_s",
+                                              "sr_write_s")})
+    log(f"headline fast (616 x 131,072 SNPs, budget {HEADLINE_FAST_BUDGET} bytes,"
+        f" depth {depth}, BLK1-BLK7): {json.dumps(res)}")
+    log(f"headline fast: wall {wall:.1f} s, BLK5 {timings['blk5_mi_computation']:.2f} s"
+        f" (dispatch {fast['dispatch_s']} s, finish {fast['finish_s']} s, SR"
+        f" emission {fast['sr_emit_s']} s, checkpoints {fast['ckpt_s']} s;"
+        f" background {blk5.get('background_s')} s), slab uploads"
+        f" {fast['uploads']}, hits {fast['hits']}, peak device memory"
+        f" {peak / 2**30:.2f} GiB")
+    if not (sr_same and lr_same_set):
+        raise RuntimeError("headline fast: the link tables differ from the spmd run's")
+    if not (fast["streaming"] and fast["max_slabs"] == 11 and fast["panel"] == 9):
+        raise RuntimeError(f"headline fast: not streamed as planned: {fast}")
+    if fast["tiles"] != 528 or launches < 528:
+        raise RuntimeError(f"headline fast: K1 launched {launches} times for"
+                           f" {fast['tiles']} tiles (528 expected)")
     return by_bucket
 
 
 def cli_phase():
-    """The CLI in a subprocess on the small input, on the card."""
+    """The CLI in a subprocess on the small input, on the card: with
+    --backend spmd, and with the default backend (fast)."""
     d = os.path.join(WORK, "cli")
     os.makedirs(d)
     fa, pos, gbk = synth_snp_alignment(d, nseq=48, g=200_000, nsnp=3000, seed=1)
     pos_path = os.path.join(d, "snps.pos")
     np.savetxt(pos_path, pos, fmt="%d")
-    dset = os.path.join(d, "out")
-    t0 = time.time()
-    proc = subprocess.run(
-        [sys.executable, "-m", "ldweaver_tpu_torch.cli", "run", "--dset", dset,
-         "--aln", fa, "--pos", pos_path, "--gbk", gbk, "--device", "cuda",
-         "--backend", "spmd", "--max-blk-sz", "1024", "--lr-retain-links", "20000"],
-        cwd=REPO, capture_output=True, text=True, timeout=600,
-    )
-    wall = time.time() - t0
-    tophits = os.path.join(dset, "Tophits", "sr_tophits.tsv")
-    log(f"cli: exit {proc.returncode} in {wall:.1f} s;"
-        f" Tophits/sr_tophits.tsv {'present' if os.path.isfile(tophits) else 'missing'}")
-    if proc.returncode != 0 or not os.path.isfile(tophits):
-        log(proc.stdout[-3000:] + proc.stderr[-3000:])
-        raise RuntimeError("the CLI run failed")
+    for backend in ("spmd", "fast"):
+        dset = os.path.join(d, f"out_{backend}")
+        flags = ["--backend", "spmd"] if backend == "spmd" else []
+        t0 = time.time()
+        proc = subprocess.run(
+            [sys.executable, "-m", "ldweaver_tpu_torch.cli", "run", "--dset", dset,
+             "--aln", fa, "--pos", pos_path, "--gbk", gbk, "--device", "cuda",
+             *flags, "--max-blk-sz", "1024", "--lr-retain-links", "20000"],
+            cwd=REPO, capture_output=True, text=True, timeout=600,
+        )
+        wall = time.time() - t0
+        tophits = os.path.join(dset, "Tophits", "sr_tophits.tsv")
+        ran = (json.load(open(os.path.join(dset, "timings.json")))["blk5_phases"]
+               if proc.returncode == 0 else {})
+        log(f"cli {' '.join(flags) or '(default backend)'}: exit {proc.returncode}"
+            f" in {wall:.1f} s; Tophits/sr_tophits.tsv"
+            f" {'present' if os.path.isfile(tophits) else 'missing'}")
+        if proc.returncode != 0 or not os.path.isfile(tophits) or backend not in ran:
+            log(proc.stdout[-3000:] + proc.stderr[-3000:])
+            raise RuntimeError(f"the CLI run ({backend}) failed")
 
 
 def device_time_split(fn, top=6):
@@ -996,7 +1190,43 @@ def lr_phase():
         f" {100 * busy['device_share'].get('fused_tile', 0.0):.1f}% of it")
     del state
     torch.cuda.empty_cache()
-    return out, k1_by_bucket
+
+    # the same input streamed through a 64 MiB budget
+    t0 = time.time()
+    state = prepare_fast_sweep(sd, w, block=4096, hbm_budget_bytes=LR_STREAM_BUDGET,
+                               device="cuda")
+    torch.cuda.synchronize()
+    prep_s = time.time() - t0
+    if not state.streaming:
+        raise RuntimeError("LR sweep: the 64 MiB budget did not stream")
+    rank_mi.K1.reset()
+    fused_tile.K2.reset()
+    t0 = time.time()
+    s1, s2, smi = fast_lr_topk(sr_dist=SR_DIST, topk=1024, state=state)
+    stream_s = time.time() - t0
+    k1s, k2s = rank_mi.K1.launches, fused_tile.K2.launches
+    k1s_by_bucket = dict(rank_mi.K1.by_bucket)
+
+    def canon(a, b, v):
+        lo, hi = np.minimum(a, b), np.maximum(a, b)
+        o = np.lexsort((hi, lo))
+        return lo[o].tolist(), hi[o].tolist(), v[o].tolist()
+
+    same = canon(pos1, pos2, mi) == canon(s1, s2, smi)
+    cache = state.slab_cache
+    out.update(stream_prep_s=prep_s, stream_s=stream_s, stream_k1_launches=k1s,
+               stream_k2_launches=k2s, stream_uploads=cache.uploads,
+               stream_hits=cache.hits, stream_equal=same)
+    log(f"LR sweep streamed ({LR_STREAM_BUDGET} bytes: {cache.max_slabs} slabs,"
+        f" panels of {state.panel}): prepared in {prep_s:.1f} s, one call"
+        f" {stream_s:.3f} s, {cache.uploads} slab uploads, {cache.hits} hits;"
+        f" K2 {k2s} launches, K1 {k1s} {k1s_by_bucket}; top-1024 equal to the"
+        f" resident call's: {same}")
+    if not same or k2s != n22 or k1s + k2s != sum(tiles.values()):
+        raise RuntimeError("LR sweep: the streamed top-k differs from the resident one")
+    del state
+    torch.cuda.empty_cache()
+    return out, k1_by_bucket, k1s_by_bucket
 
 
 # --------------------------------------------------------------------------
@@ -1034,41 +1264,52 @@ def compat_phase():
     return by_shape
 
 
+def timed(name, fn, *args):
+    """Run one phase and log its wall time."""
+    t0 = time.time()
+    out = fn(*args)
+    log(f"phase {name}: {time.time() - t0:.1f} s")
+    return out
+
+
 def main():
     name, smi = probe()
     if os.path.exists(WORK):
         shutil.rmtree(WORK)
     os.makedirs(WORK)
-    build()
-    k1_slice = kernel_phase(S, BUCKETS, seed=20261016)
-    k1_lr = kernel_phase(K2_S, LR_BUCKETS, seed=20261018)
-    k2_row = fused_phase()
-    k3_rows = compat_kernel_phase()
-    small_phase("spmd")
-    small_phase("pallas")
-    small_phase("jax")
-    launches, by_bucket = slice_phase()
-    cli_phase()
-    headline_by_bucket = headline_phase()
-    lr, lr_k1 = lr_phase()
-    k3_by_shape = compat_phase()
+    timed("build", build)
+    k1_slice = timed("kernels S=616", kernel_phase, S, BUCKETS, 20261016)
+    k1_lr = timed("kernels S=1024", kernel_phase, K2_S, LR_BUCKETS, 20261018)
+    k2_row = timed("fused", fused_phase)
+    k3_rows = timed("compat kernel", compat_kernel_phase)
+    for backend in ("spmd", "pallas", "jax", "fast"):
+        timed(f"small {backend}", small_phase, backend)
+    timed("resume", resume_phase)
+    launches, by_bucket = timed("slice", slice_phase)
+    timed("cli", cli_phase)
+    headline_by_bucket, headline_inputs = timed("headline", headline_phase)
+    fast_by_bucket = timed("headline fast", headline_fast_phase, headline_inputs)
+    lr, lr_k1, lr_stream_k1 = timed("lr", lr_phase)
+    k3_by_shape = timed("compat", compat_phase)
     kernels = []
     # K1 at the spmd slice's S = 616 and the LR sweep's S = 1024, each row
     # with the launches of the path that runs the kernel at that shape (the
     # S = 616 rows also with the headline run's)
-    unmeasured = set(headline_by_bucket) - set(k1_slice)
+    unmeasured = (set(headline_by_bucket) | set(fast_by_bucket)) - set(k1_slice)
     if unmeasured:
-        raise RuntimeError(f"K1 launched on the headline run in buckets not"
+        raise RuntimeError(f"K1 launched on the headline runs in buckets not"
                            f" measured at its shape: {sorted(unmeasured)}")
     for rows, path_launches, path in ((k1_slice, by_bucket, "spmd slice"),
-                                      (k1_lr, lr_k1, "LR sweep")):
+                                      (k1_lr, {**lr_k1, **lr_stream_k1}, "LR sweep")):
         unmeasured = set(path_launches) - set(rows)
         if unmeasured:
             raise RuntimeError(f"K1 launched on the {path} in buckets not"
                                f" measured at its shape: {sorted(unmeasured)}")
         for (Rf, Rt, pure), row in rows.items():
-            extra = ({"launches_headline": headline_by_bucket.get((Rf, Rt, pure), 0)}
-                     if rows is k1_slice else {})
+            extra = ({"launches_headline": headline_by_bucket.get((Rf, Rt, pure), 0),
+                      "launches_headline_fast": fast_by_bucket.get((Rf, Rt, pure), 0)}
+                     if rows is k1_slice else
+                     {"launches_lr_streamed": lr_stream_k1.get((Rf, Rt, pure), 0)})
             kernels.append(dict(
                 name=(f"rank_mi_tile[Rf={Rf},Rt={Rt},"
                       f"{'pure' if pure else 'general'},S={row['S']}]"),
@@ -1076,7 +1317,7 @@ def main():
                 source="ldweaver_tpu_torch/csrc/rank_mi.cu",
                 replaces=("ldweaver_tpu/parallel/fast_sweep.py:223" if pure
                           else "ldweaver_tpu/ops/pallas_rank_mi.py:23"),
-                launches=path_launches.get((Rf, Rt, pure), 0),
+                launches=(by_bucket if rows is k1_slice else lr_k1).get((Rf, Rt, pure), 0),
                 **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                        "bound_by", "bound_frac", "library_ms")},
                 **extra,
@@ -1085,7 +1326,8 @@ def main():
         name="fused_tile_stage1[Rf=2,Rt=2,pure,S=1024]", route="cuda",
         source="ldweaver_tpu_torch/csrc/fused_tile.cu",
         replaces="ldweaver_tpu/ops/pallas_fused_tile.py:42",
-        launches=lr["k2_launches"], **k2_row,
+        launches=lr["k2_launches"], launches_lr_streamed=lr["stream_k2_launches"],
+        **k2_row,
     ))
     unmeasured = set(k3_by_shape) - set(k3_rows)
     if unmeasured:

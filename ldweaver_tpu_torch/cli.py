@@ -7,9 +7,10 @@ command line parses in both.
     python -m ldweaver_tpu_torch.cli lr-analyse --dset out \
         --lr-links out/Temp/lr_links.tsv --sr-links out/Temp/sr_links.tsv
 
-`run --device` (default cuda) is the entry points' `device` argument.
-Options that are not ported yet raise NotImplementedError naming their
-ROADMAP.md item.
+`run --device` (default cuda) is the entry points' `device` argument;
+`run --backend` defaults to fast, as in the reference package's CLI.
+Multi-process and multi-device runs are not ported yet: their options
+raise NotImplementedError naming ROADMAP.md item 10.
 """
 
 from __future__ import annotations
@@ -18,9 +19,6 @@ import argparse
 import sys
 
 import numpy as np
-
-PIPELINE_DEPTH_DEFAULT = 4
-
 
 def build_parser():
     p = argparse.ArgumentParser(prog="ldweaver-torch")
@@ -51,12 +49,11 @@ def build_parser():
     run.add_argument("--save-additional-outputs", action="store_true")
     run.add_argument("--no-length-validation", action="store_true")
     run.add_argument("--snpeff-jar", dest="snpeff_jar_path")
-    run.add_argument("--backend", default="spmd",
+    run.add_argument("--backend", default="fast",
                      choices=["jax", "numpy", "pallas", "fast", "spmd"],
-                     help="BLK5 sweep (default spmd: the reference package's"
-                          " CLI defaults to fast, which is not ported yet"
-                          " (ROADMAP.md item 9); the reference package"
-                          " states that spmd writes byte-identical outputs)")
+                     help="BLK5 sweep (default fast; spmd writes"
+                          " byte-identical outputs and reduces the SR table"
+                          " on the card, the faster path on one card)")
     run.add_argument("--device", default="cuda",
                      help="torch device of BLK4 and BLK5: cuda (default) or"
                           " cpu (the kernels' plain PyTorch versions)")
@@ -69,13 +66,12 @@ def build_parser():
     run.add_argument("--process-id", type=int, default=None,
                      help="this process's id in [0, num_processes)")
     run.add_argument("--device-budget-bytes", type=int, default=None,
-                     help="device-memory cap of the streamed fast sweep; not"
-                          " ported yet (ROADMAP.md item 9)")
-    run.add_argument("--pipeline-depth", type=int,
-                     default=PIPELINE_DEPTH_DEFAULT,
-                     help="tiles dispatched ahead of host extraction (fast"
-                          " backend); only the default is accepted until"
-                          " ROADMAP.md item 9")
+                     help="device-memory cap of the fast backend's slab pool"
+                          " (default the card's memory); below the rank"
+                          " codes' size the slabs stream")
+    run.add_argument("--pipeline-depth", type=int, default=4,
+                     help="tiles the fast backend dispatches ahead of the"
+                          " host emission (1 = synchronous)")
     run.add_argument("--n-devices", type=int, default=None,
                      help="devices of the sweep (default one; more is"
                           " ROADMAP.md item 10)")
@@ -116,22 +112,11 @@ def build_parser():
 
 def _refuse_unported(args) -> None:
     """The `run` options the reference package has and the port does not
-    yet; the others it has not (backend, n_devices) are refused by the
-    pipeline's own check."""
+    yet; n_devices is refused by the pipeline's own check."""
     if args.num_processes or args.coordinator:
         raise NotImplementedError(
             "--coordinator / --num-processes: multi-process runs are not"
             " ported yet (ROADMAP.md item 10)"
-        )
-    if args.device_budget_bytes is not None:
-        raise NotImplementedError(
-            "--device-budget-bytes: the streamed fast sweep is not ported"
-            " yet (ROADMAP.md item 9)"
-        )
-    if args.pipeline_depth != PIPELINE_DEPTH_DEFAULT:
-        raise NotImplementedError(
-            "--pipeline-depth: the fast sweep's dispatch pipeline is not"
-            " ported yet (ROADMAP.md item 9)"
         )
 
 
@@ -162,6 +147,8 @@ def main(argv=None):
             write_gwesExplorer=not args.no_gwes_explorer,
             save_additional_outputs=args.save_additional_outputs,
             n_devices=args.n_devices,
+            device_budget_bytes=args.device_budget_bytes,
+            pipeline_depth=args.pipeline_depth,
             sr_reduce=args.sr_reduce,
         )
         ldweaver(

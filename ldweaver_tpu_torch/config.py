@@ -64,6 +64,13 @@ class LDWeaverConfig:
     # links (reference: R/computePairwiseMI.R:92-101, set.seed(1988)).  When
     # False, the exact count is computed instead (deterministic and exact).
     r_compat_lr_sampling: bool = True
+    # device-memory cap of the fast backend's slab pool (None = the card's
+    # memory); under it the rank-code slabs stream through an LRU cache in
+    # panel order (parallel/slabs.py)
+    device_budget_bytes: Optional[int] = None
+    # how many tiles the fast backend dispatches ahead of the host
+    # emission (1 = synchronous)
+    pipeline_depth: int = 4
     # where the SR background reduction runs for backend='spmd'
     # (parallel/sr_reduce.py): 'auto' = on the device when the SR table
     # fits the budget, else the host with a warning; 'device' = always on

@@ -5,22 +5,37 @@ R/computePairwiseMI.R:167-386).
 backend "spmd": the r-stratified tile sweep runs on one device
 (parallel/spmd_sweep.py), and with `sr_reduce` "auto" (when the SR table
 fits) or "device" the SR background model reduces there too
-(parallel/sr_reduce.py).  The compat backends "jax", "pallas" and
+(parallel/sr_reduce.py).  backend "fast": the same tiles through
+`FastTileRunner`, dispatched `pipeline_depth` ahead of the host emission
+and fed from a slab cache whose pool a device budget bounds
+(parallel/slabs.py); the SR pairs are emitted on the host, and the TSVs
+are byte-identical to "spmd".  The compat backends "jax", "pallas" and
 "numpy" walk the reference's contiguous `make_blocks` tiling with one MI
 tile per block pair (`sweep_block_pair`): "numpy" the float64 oracle on
 the host, "jax" the f32 PyTorch tile (`core/mi.mi_tile_jax`), "pallas"
 kernel K3 (`ops/compat_mi.mi_tile_pallas`); link extraction is host code.
 The background model, ARACNE and the TSV writers run on the host.
+
+With `checkpoint_dir` every backend resumes an interrupted sweep: each
+finished block pair (compat, "fast") or tile ("spmd", under
+`spmd_tiles/`) is written atomically as one uncompressed npz, and a
+manifest of the configuration and a checksum of the data invalidates
+stale ones (`_BlockCheckpoint`).
 """
 
 from __future__ import annotations
 
 import functools
+import json
 import os
 import time
-from typing import Callable, List, Optional
+import zipfile
+import zlib
+from collections import deque
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from ldweaver_tpu_torch.core.aracne import run_aracne
 from ldweaver_tpu_torch.core.background import (
@@ -39,8 +54,33 @@ from ldweaver_tpu_torch.core.mi import (
 from ldweaver_tpu_torch.core.snp_tensor import SnpData
 from ldweaver_tpu_torch.io.writers import append_tsv_rows, format_float
 from ldweaver_tpu_torch.ops.compat_mi import mi_tile_pallas
-from ldweaver_tpu_torch.parallel.spmd_sweep import blk5_sweep, fast_block_size
+from ldweaver_tpu_torch.parallel.fast_sweep import stratify, tile_masks, two_stage_topk
+from ldweaver_tpu_torch.parallel.slabs import (
+    SlabCache,
+    auto_budget,
+    panel_pair_order,
+    plan_budget,
+)
+from ldweaver_tpu_torch.parallel.spmd_sweep import (
+    _circular_window_counts,
+    blk5_sweep,
+    device_inputs,
+    dispatch_extract,
+    emit_sr_pairs,
+    emit_tile_extract,
+    extract_dims,
+    fallback_full_tile,
+    fast_block_size,
+    finish_extract,
+    full_tile_emit,
+    recover_lr,
+    sr_pair_counts,
+    tile_emit_kw,
+    tile_mi,
+    to_host,
+)
 from ldweaver_tpu_torch.support import check_supported, resolve_device
+from ldweaver_tpu_torch.utils.profiling import annotate, maybe_trace
 from ldweaver_tpu_torch.utils.r_compat import quantile_type7
 
 
@@ -211,6 +251,389 @@ def _emit_pairs(
                 sr_links[ci - 1].append(t.take(np.flatnonzero(m)))
 
 
+
+
+# --------------------------------------------------------------------------
+# The fast backend: split dispatch / finish over a slab cache
+# --------------------------------------------------------------------------
+def _lr_quantile(mi: torch.Tensor, lr_ok: torch.Tensor, prob: float):
+    """Type-7 quantile of the tile's LR values, on the device: the two
+    order statistics around (n - 1) * prob interpolated in float64 (NaN
+    for a tile without LR pairs)."""
+    xs = torch.sort(torch.where(lr_ok, mi, float("nan")).reshape(-1)).values
+    n = lr_ok.sum()
+    h = (n.to(torch.float64) - 1.0) * prob
+    lo = torch.clamp(torch.floor(h).to(torch.int64), min=0)
+    hi = torch.clamp(torch.minimum(lo + 1, n - 1), min=0)
+    x_lo, x_hi = xs.index_select(0, torch.stack([lo, hi])).to(torch.float64)
+    q = x_lo + (h - lo.to(torch.float64)) * (x_hi - x_lo)
+    return torch.where(n > 0, q, float("nan"))
+
+
+class FastTileRunner:
+    """Tile executor of the fast backend: a slab cache on the device and
+    split `dispatch` / `finish`, so the pipeline queues tiles ahead and
+    the card computes while the host emits links.  `dispatch` waits for
+    nothing on the card: it reads the tile's two slabs from the cache
+    pool, queues the tile (kernel K1) and the copies of its results into
+    pinned host memory, and records an event; `finish` waits on the event
+    and emits.
+
+    Transfer modes per tile:
+      'extract' (the 'auto' default) - the spmd sweep's on-device link
+        extraction (parallel/spmd_sweep.dispatch_extract): the SR pairs
+        compacted into the tile's exact host-known count, a certified
+        two-stage LR top-K; the same bytes as backend "spmd";
+      'summary' - the tile's f64 type-7 LR threshold, an LR top-K with 16
+        candidates a row, and the submatrix of the rows and columns that
+        can hold SR pairs;
+      'full' - the whole [B, B] tile, extracted on the host (also the
+        exact fallback of a saturated summary tile).
+    A failed LR certificate takes the boosted retry and then the full
+    tile (spmd_sweep.recover_lr); repeated saturation (4 fallbacks, and
+    at least as many as tiles that succeeded) demotes the runner to full
+    transfers.  Outputs do not depend on the transfer mode."""
+
+    def __init__(
+        self,
+        ranked,
+        paint_sorted: np.ndarray,
+        valid: np.ndarray,
+        hdw: np.ndarray,
+        neff: float,
+        g: int,
+        sr_dist: int,
+        lr_retain_links: float,
+        lr_links_approx: Optional[float],
+        sr_links: List[list],
+        transfer: str = "auto",
+        topk: int = 8192,
+        max_slabs: Optional[int] = None,
+        device="cuda",
+    ):
+        self.ranked = ranked
+        self.paint_sorted = paint_sorted
+        self.valid = valid
+        self.g = g
+        self.sr_dist = sr_dist
+        self.sr_links = sr_links
+        self.transfer = transfer
+        self.topk = topk
+        self.lr_prob = (
+            None
+            if lr_links_approx is None
+            else max(0.0, 1.0 - lr_retain_links / lr_links_approx)
+        )
+        self.cache = SlabCache(ranked.rank_codes, ranked.block, max_slabs,
+                               device=device)
+        self.dev = device_inputs(ranked, valid, np.asarray(hdw, np.float64),
+                                 neff, device, codes=self.cache.pool)
+        self.K, self.k_row = extract_dims(ranked.block, self.lr_prob)
+        self.sr_counts = sr_pair_counts(ranked, valid, g, sr_dist)
+        self.fallbacks = 0
+        self.retries = 0
+        self._summary_ok = 0
+        self._demoted = False
+
+    def _mode(self) -> str:
+        if self._demoted or self.transfer == "full":
+            return "full"
+        if self.transfer == "summary":
+            return "summary"
+        return "extract"  # 'auto' / 'extract'
+
+    def _bucket(self, bi: int, bj: int):
+        rk = self.ranked
+        return (int(rk.block_rmax[bi]), int(rk.block_rmax[bj]),
+                bool(rk.block_pure[bi]) and bool(rk.block_pure[bj]))
+
+    def _cols(self, bi: int, bj: int) -> Tuple[int, int]:
+        return self.cache.get(bi), self.cache.get(bj)
+
+    def pin_panel(self, rows) -> None:
+        self.cache.unpin()
+        self.cache.pin(rows)
+
+    def unpin_all(self) -> None:
+        self.cache.unpin()
+
+    def _emit_kw(self, bi: int, bj: int, lr_rows_sink: Callable) -> dict:
+        return tile_emit_kw(
+            self.ranked, self.paint_sorted, bi, bj, g=self.g,
+            sr_dist=self.sr_dist, lr_prob=self.lr_prob,
+            expected_sr=int(self.sr_counts[bi, bj]), sr_links=self.sr_links,
+            lr_rows_sink=lr_rows_sink,
+        )
+
+    def emit_sr(self, bi: int, bj: int, sr_idx, sr_vals) -> None:
+        """Emit a tile's SR pairs (replay of a checkpoint)."""
+        emit_sr_pairs(sr_idx, sr_vals, **self._emit_kw(bi, bj, None))
+
+    # -- dispatch: queue device work, do NOT wait for it ----------------
+    def dispatch(self, bi: int, bj: int) -> dict:
+        cols = self._cols(bi, bj)
+        mode = self._mode()
+        Rf, Rt, pure = self._bucket(bi, bj)
+        B = self.ranked.block
+        if mode == "extract":
+            p = dispatch_extract(
+                self.dev, bi, bj, block=B, sr_dist=int(self.sr_dist),
+                g=int(self.g), K=self.K, k_row=self.k_row,
+                prob=1.0 if self.lr_prob is None else self.lr_prob,
+                Rf=Rf, Rt=Rt, pure=pure, n_sr=int(self.sr_counts[bi, bj]),
+                cols=cols,
+            )
+            return dict(kind="extract", bi=bi, bj=bj, p=p)
+        mi = tile_mi(self.dev, bi, bj, B, Rf, Rt, pure, cols)
+        if mode == "summary":
+            out = self._dispatch_summary(bi, bj, mi)
+        else:
+            out = dict(kind="full", bi=bi, bj=bj, mi=to_host(mi))
+        if mi.device.type == "cuda":
+            out["event"] = torch.cuda.Event()
+            out["event"].record()
+        return out
+
+    def _dispatch_summary(self, bi: int, bj: int, mi: torch.Tensor) -> dict:
+        rk, dev, B, g = self.ranked, self.dev, self.ranked.block, self.g
+        f_sl = slice(bi * B, (bi + 1) * B)
+        t_sl = slice(bj * B, (bj + 1) * B)
+        pos_f, pos_t = rk.pos[f_sl], rk.pos[t_sl]
+        val_f, val_t = self.valid[f_sl], self.valid[t_sl]
+        # SR-capable rows / columns from the positions (host, cheap)
+        row_cnt = _circular_window_counts(pos_f, pos_t[val_t], g, self.sr_dist)
+        col_cnt = _circular_window_counts(pos_t, pos_f[val_f], g, self.sr_dist)
+        rows_sel = np.flatnonzero((row_cnt > 0) & val_f)
+        cols_sel = np.flatnonzero((col_cnt > 0) & val_t)
+        fs, ts = bi * B, bj * B
+        _, lr_ok = tile_masks(
+            dev.pos[fs : fs + B], dev.pos[ts : ts + B], dev.valid[fs : fs + B],
+            dev.valid[ts : ts + B], bi == bj, int(g), int(self.sr_dist),
+        )
+        prob = 1.0 if self.lr_prob is None else self.lr_prob
+        thresh = _lr_quantile(mi, lr_ok, prob)
+        neg = torch.where(lr_ok, mi, float("-inf"))
+        above = neg >= thresh.to(torch.float32)
+        k_row = min(16, B, self.topk)
+        vals, idx = two_stage_topk(neg, k_row, self.topk)
+
+        def index(sel):
+            t = torch.from_numpy(sel.astype(np.int64))
+            if mi.device.type == "cuda":
+                t = t.pin_memory().to(mi.device, non_blocking=True)
+            return t
+
+        sub = mi[index(rows_sel)][:, index(cols_sel)]
+        counts = torch.stack([above.sum(), above.sum(dim=1).max()])
+        return dict(
+            kind="summary", bi=bi, bj=bj, thresh=to_host(thresh),
+            counts=to_host(counts), vals=to_host(vals),
+            idx=to_host(idx.to(torch.int32)), sub=to_host(sub),
+            rows_sel=rows_sel, cols_sel=cols_sel,
+        )
+
+    # -- finish: wait + host emission ------------------------------------
+    def finish(self, pending: dict, lr_rows_sink: Callable):
+        """Emit a dispatched tile's LR links; returns its SR pairs (i32
+        row-major flat index, f32 MI) for `emit_sr`, which the caller
+        runs in the canonical tile order (the background model's sums
+        follow the SR table's order).  SR is single-sourced from the
+        primary result: its compaction is exact whatever the LR side."""
+        bi, bj = pending["bi"], pending["bj"]
+        kw = self._emit_kw(bi, bj, lr_rows_sink)
+        if pending["kind"] == "extract":
+            res = finish_extract(pending["p"])
+            record = (res.sr_idx[: res.n_sr], res.sr_vals[: res.n_sr])
+            if emit_tile_extract(res, K=self.K, parts="lr", **kw):
+                self._summary_ok += 1
+                return record
+            # the LR certificate failed: redo only the LR side
+            retried, fell_back = recover_lr(
+                self.dev, self.ranked, self.valid, self.paint_sorted, res,
+                bi, bj, g=self.g, sr_dist=self.sr_dist, lr_prob=self.lr_prob,
+                K=self.K, k_row=self.k_row, emit_kw=kw, cols=self._cols(bi, bj),
+            )
+            self.retries += retried
+            if fell_back:
+                self._note_fallback()
+            else:
+                self._summary_ok += 1
+            return record
+        if pending.get("event") is not None:
+            pending["event"].synchronize()
+        if pending["kind"] == "full":
+            return full_tile_emit(
+                pending["mi"].numpy(), self.ranked, self.valid,
+                self.paint_sorted, bi, bj, self.g, self.sr_dist, self.lr_prob,
+                self.sr_links, lr_rows_sink, emit_sr=False,
+            )
+        record = self._finish_summary(pending, kw)
+        if record is not None:
+            self._summary_ok += 1
+            return record
+        # saturated top-K: the exact full tile (synchronous)
+        self._note_fallback()
+        return fallback_full_tile(
+            self.dev, self.ranked, self.valid, self.paint_sorted, bi, bj,
+            self.g, self.sr_dist, self.lr_prob, self.sr_links, lr_rows_sink,
+            emit_sr=False, cols=self._cols(bi, bj),
+        )
+
+    def _note_fallback(self) -> None:
+        """At most one extra dispatch per tile; repeated saturation demotes
+        the runner to full transfers, so an adversarially dense dataset
+        cannot run every tile twice."""
+        self.fallbacks += 1
+        if self.fallbacks >= 4 and self.fallbacks >= self._summary_ok:
+            self._demoted = True
+
+    def _finish_summary(self, pending: dict, kw: dict):
+        B, bi, bj = self.ranked.block, pending["bi"], pending["bj"]
+        n_above, n_row_max = pending["counts"].tolist()
+        vals = pending["vals"].numpy()
+        if n_above > vals.shape[0] or n_row_max > 16:
+            return None  # saturated (globally or per row)
+        thresh = float(pending["thresh"])
+        rows_sel, cols_sel = pending["rows_sel"], pending["cols_sel"]
+        if self.lr_prob is not None and np.isfinite(thresh):
+            vals64 = vals.astype(np.float64)
+            keep = np.isfinite(vals64) & (vals64 >= thresh)
+            if keep.any():
+                kidx = pending["idx"].numpy()[keep].astype(np.int64)
+                order = np.argsort(kidx, kind="stable")  # row-major
+                _emit_pairs(
+                    kidx[order] // B, kidx[order] % B, vals64[keep][order],
+                    kw["pos_f"], kw["pos_t"], kw["pnt_f"], kw["pnt_t"], self.g,
+                    self.sr_dist, self.lr_prob, self.sr_links,
+                    kw["lr_rows_sink"], apply_lr_quantile=False,
+                    lr_thresh=thresh,
+                )
+        # SR pairs from the gathered submatrix
+        sr_idx, sr_vals = np.zeros(0, np.int32), np.zeros(0, np.float32)
+        if rows_sel.size and cols_sel.size:
+            sub = pending["sub"].numpy()
+            lens = circular_len(kw["pos_t"][cols_sel][None, :],
+                                kw["pos_f"][rows_sel][:, None], self.g)
+            mask = lens <= self.sr_dist
+            if bi == bj:
+                mask &= rows_sel[:, None] > cols_sel[None, :]
+            ri, cj = np.nonzero(mask)
+            sr_idx = (rows_sel[ri] * B + cols_sel[cj]).astype(np.int32)
+            sr_vals = sub[ri, cj].astype(np.float32)
+        if sr_idx.size != kw["expected_sr"]:
+            raise RuntimeError(
+                f"summary SR count {sr_idx.size} != host count {kw['expected_sr']}"
+            )
+        return sr_idx, sr_vals
+
+
+def sweep_block_pair_fast(
+    ranked,
+    paint_sorted: np.ndarray,
+    valid: np.ndarray,
+    hdw: np.ndarray,
+    neff: float,
+    g: int,
+    bi: int,
+    bj: int,
+    sr_dist: int,
+    lr_retain_links: float,
+    lr_links_approx: Optional[float],
+    sr_links: List[LinkTable],
+    lr_rows_sink: Callable,
+    transfer: str = "auto",
+    device="cuda",
+):
+    """Fast-path block pair, synchronous (dispatch + finish back to back).
+
+    Unlike the compat path, off-diagonal block pairs KEEP their in-block
+    diagonal pairs (the reference drops them - a quirk, not a feature).
+    The pipeline uses FastTileRunner directly to queue tiles ahead."""
+    runner = FastTileRunner(
+        ranked, paint_sorted, valid, hdw, neff, g, sr_dist,
+        lr_retain_links, lr_links_approx, sr_links, transfer=transfer,
+        device=resolve_device(device),
+    )
+    runner.emit_sr(bi, bj, *runner.finish(runner.dispatch(bi, bj), lr_rows_sink))
+
+
+# --------------------------------------------------------------------------
+# Block checkpoints
+# --------------------------------------------------------------------------
+LINK_FIELDS = ("pos1", "pos2", "clust1", "clust2", "len", "MI")
+
+
+def data_crc(*arrays) -> int:
+    """crc32 over the bytes of the arrays: a checkpoint manifest keys on
+    the data, not only on its shapes."""
+    crc = 0
+    for a in arrays:
+        crc = zlib.crc32(np.ascontiguousarray(a).view(np.uint8).ravel(), crc)
+    return crc
+
+
+class _BlockCheckpoint:
+    """Block-granular sweep checkpointing: each completed block pair (or
+    tile) is persisted as one uncompressed npz, written atomically; a
+    manifest keyed by the sweep configuration invalidates stale
+    checkpoints."""
+
+    def __init__(self, directory: str, config_key):
+        self.dir = directory
+        os.makedirs(directory, exist_ok=True)
+        manifest = os.path.join(directory, "manifest.json")
+        key = json.dumps(list(map(str, config_key)))
+        stale = True
+        if os.path.exists(manifest):
+            try:
+                with open(manifest) as fh:
+                    stale = fh.read() != key
+            except OSError:
+                pass
+        if stale:
+            for f in os.listdir(directory):
+                if f.endswith(".npz"):
+                    os.unlink(os.path.join(directory, f))
+            with open(manifest + ".tmp", "wt") as fh:
+                fh.write(key)
+            os.replace(manifest + ".tmp", manifest)
+
+    def _path(self, key) -> str:
+        return os.path.join(self.dir, f"blk_{key}.npz")
+
+    def load(self, key) -> Optional[dict]:
+        """The block's arrays, or None if it has no (readable) checkpoint."""
+        try:
+            with np.load(self._path(key)) as z:
+                return {k: z[k] for k in z.files}
+        except (OSError, ValueError, EOFError, zipfile.BadZipFile):
+            return None
+
+    def save(self, key, payload: dict) -> None:
+        tmp = self._path(key) + ".tmp.npz"
+        np.savez(tmp, **payload)
+        os.replace(tmp, self._path(key))
+
+
+def tile_payload(sr, lr_rows) -> dict:
+    """Checkpoint arrays of one tile: its SR pairs (i32 flat index, f32
+    MI; None when they stay on the device) and its LR rows as emitted."""
+    payload = {}
+    if sr is not None:
+        payload["sr_idx"] = np.asarray(sr[0], np.int32)
+        payload["sr_vals"] = np.asarray(sr[1], np.float32)
+    for k, cols in enumerate(lr_rows):
+        for name, col in zip(LINK_FIELDS, cols):
+            payload[f"lr{k}_{name}"] = col
+    payload["n_lr"] = np.int64(len(lr_rows))
+    return payload
+
+
+def replay_lr_rows(z: dict, lr_sink: Callable) -> None:
+    for k in range(int(z["n_lr"])):
+        lr_sink(*[z[f"lr{k}_{name}"] for name in LINK_FIELDS])
+
+
 def perform_mi_computation(
     snp_data: SnpData,
     hdw: np.ndarray,
@@ -230,6 +653,8 @@ def perform_mi_computation(
     r_compat_sampling: bool = True,
     verbose: bool = True,
     checkpoint_dir: Optional[str] = None,
+    device_budget_bytes: Optional[int] = None,
+    pipeline_depth: int = 4,
     n_devices: Optional[int] = None,
     phase_timings: Optional[dict] = None,
     sr_reduce: str = "auto",
@@ -239,19 +664,21 @@ def perform_mi_computation(
 
     Returns the reduced short-range link table (SrLinks with ARACNE column),
     like the reference returns sr_links_red (R/computePairwiseMI.R:143).
-    phase_timings, if given a dict, is filled with the wall-clock split
-    (sweep / background fit / aracne / sr write, plus the spmd sweep's
-    tile stats).  rxy_compat selects the reference's RXY alias on the
-    compat backends."""
-    check_supported(
-        backend=backend, n_devices=n_devices, checkpoint_dir=checkpoint_dir,
-    )
+
+    device_budget_bytes bounds the fast backend's slab pool (by default
+    the card's memory; under it the slabs stream, parallel/slabs.py);
+    pipeline_depth is how many fast tiles are dispatched ahead of the
+    host emission.  checkpoint_dir resumes an interrupted sweep (module
+    docstring).  phase_timings, if given a dict, is filled with the
+    wall-clock split (sweep / background fit / aracne / sr write, plus
+    the sweep's tile stats under "spmd" or "fast").  rxy_compat selects
+    the reference's RXY alias on the compat backends."""
+    check_supported(backend=backend, n_devices=n_devices)
     device = resolve_device(device)
     t000 = time.time()
     # the reference rounds the block size to a 1000-multiple (:69); that
-    # shapes only the compat tiling, the spmd tile keeps max_blk_sz
+    # shapes only the compat tiling, the spmd/fast tile keeps max_blk_sz
     fast_blk = fast_block_size(snp_data.nsnp, max_blk_sz)
-    blocks = make_blocks(snp_data.nsnp, round_blk_sz(max_blk_sz))
     nclust = cds_var.nclust
     # per-cluster PART lists (concatenated once after the sweep: a
     # concat per block would be quadratic in total links)
@@ -305,54 +732,110 @@ def perform_mi_computation(
                 )
             )
 
+    chkpt = None
+    if checkpoint_dir:
+        # the JAX package's key (core/sweep.py:903-913), the fast tile
+        # size, the options that change the links, and the data's crc
+        chkpt = _BlockCheckpoint(checkpoint_dir, config_key=(
+            snp_data.nsnp, snp_data.nseq, sr_dist, float(lr_retain_links),
+            round_blk_sz(max_blk_sz), backend, nclust, fast_blk,
+            perform_sr_analysis_only, lr_links_approx, rxy_compat,
+            data_crc(snp_data.codes, snp_data.pos, np.asarray(hdw, np.float64),
+                     cds_var.paint),
+        ))
+
+    def run_block(key, fn):
+        """Run one compat block pair with block-granular checkpoint and
+        restart (the reference resumes only at whole-file granularity,
+        R/BacGWES.R:382-385)."""
+        hit = chkpt.load(key) if chkpt is not None else None
+        if hit is not None:
+            for ci, parts in enumerate(sr_links):
+                if f"sr{ci}_pos1" in hit:
+                    parts.append(LinkTable(*[hit[f"sr{ci}_{f}"] for f in LINK_FIELDS]))
+            replay_lr_rows(hit, lr_sink)
+            return
+        before = [len(t) for t in sr_links]
+        lr_acc = []
+
+        def capture_sink(*cols):
+            lr_acc.append(tuple(np.asarray(c) for c in cols))
+            lr_sink(*cols)
+
+        fn(capture_sink)
+        if chkpt is not None:
+            payload = tile_payload(None, lr_acc)
+            for ci, parts in enumerate(sr_links):
+                if len(parts) > before[ci]:
+                    tail = LinkTable.concat(parts[before[ci]:])
+                    for f in LINK_FIELDS:
+                        payload[f"sr{ci}_{f}"] = getattr(tail, f)
+            chkpt.save(key, payload)
+
     dev_sr = None
-    if backend == "spmd":
-        stats, dev_sr = blk5_sweep(
-            snp_data,
-            np.asarray(hdw, dtype=np.float64),
-            cds_var.paint,
-            neff,
-            sr_dist,
-            lr_retain_links,
-            None if perform_sr_analysis_only else lr_links_approx,
-            sr_links,
-            lr_sink,
-            block=fast_blk,
-            device=device,
-            perform_sr_only=perform_sr_analysis_only,
-            verbose=verbose,
-            sr_reduce=sr_reduce,
-        )
-        if phase_timings is not None:
-            phase_timings["spmd"] = stats
-    else:
-        for bi in range(blocks.shape[0]):
-            t0 = time.time()
-            fs, fe, ts, te = (int(v) for v in blocks[bi])
-            sweep_block_pair(
+    with maybe_trace("blk5_sweep"):
+        if backend == "spmd":
+            stats, dev_sr = blk5_sweep(
                 snp_data,
                 np.asarray(hdw, dtype=np.float64),
                 cds_var.paint,
                 neff,
-                fs,
-                fe,
-                ts,
-                te,
                 sr_dist,
                 lr_retain_links,
-                lr_links_approx,
+                None if perform_sr_analysis_only else lr_links_approx,
                 sr_links,
                 lr_sink,
-                backend=backend,
-                rxy_compat=rxy_compat,
-                perform_sr_only=perform_sr_analysis_only,
+                block=fast_blk,
                 device=device,
+                perform_sr_only=perform_sr_analysis_only,
+                verbose=verbose,
+                sr_reduce=sr_reduce,
+                checkpoint_dir=(os.path.join(checkpoint_dir, "spmd_tiles")
+                                if checkpoint_dir else None),
             )
-            if verbose:
-                print(
-                    f"Block {bi + 1} of {blocks.shape[0]} ... "
-                    f"done in {time.time() - t0:.2f} s"
+            if phase_timings is not None:
+                phase_timings["spmd"] = stats
+        elif backend == "fast":
+            stats = _fast_sweep(
+                snp_data, hdw, cds_var.paint, neff, sr_dist, lr_retain_links,
+                None if perform_sr_analysis_only else lr_links_approx,
+                sr_links, lr_sink, fast_blk, device, device_budget_bytes,
+                pipeline_depth, chkpt, verbose,
+            )
+            if phase_timings is not None:
+                phase_timings["fast"] = stats
+        else:
+            blocks = make_blocks(snp_data.nsnp, round_blk_sz(max_blk_sz))
+            for bi in range(blocks.shape[0]):
+                t0 = time.time()
+                fs, fe, ts, te = (int(v) for v in blocks[bi])
+                run_block(
+                    f"compat_{fs}_{ts}",
+                    lambda sink, fs=fs, fe=fe, ts=ts, te=te: sweep_block_pair(
+                        snp_data,
+                        np.asarray(hdw, dtype=np.float64),
+                        cds_var.paint,
+                        neff,
+                        fs,
+                        fe,
+                        ts,
+                        te,
+                        sr_dist,
+                        lr_retain_links,
+                        lr_links_approx,
+                        sr_links,
+                        sink,
+                        backend=backend,
+                        rxy_compat=rxy_compat,
+                        perform_sr_only=perform_sr_analysis_only,
+                        device=device,
+                    ),
                 )
+                if verbose:
+                    print(
+                        f"Block {bi + 1} of {blocks.shape[0]} ... "
+                        f"done in {time.time() - t0:.2f} s"
+                    )
 
     _t_sweep_end = time.time()
     if dev_sr is not None:
@@ -423,3 +906,128 @@ def perform_mi_computation(
     if verbose:
         print(f"All done in {(time.time() - t000) / 60:.2f} mins")
     return sr_links_red
+
+
+def _fast_sweep(snp_data, hdw, paint, neff, sr_dist, lr_retain_links,
+                lr_links_approx, sr_links, lr_sink, block, device,
+                device_budget_bytes, pipeline_depth, chkpt, verbose) -> dict:
+    """BLK5 of backend "fast": the tiles in panel order through a
+    FastTileRunner, `pipeline_depth` dispatched ahead of the host
+    emission, each finished tile checkpointed (its SR pairs as i32 flat
+    index + f32 MI, its LR rows) and a done tile replayed in its place in
+    the queue, so the rows come out in the same order.  The SR pairs go
+    into `sr_links` in the canonical tile order.  Returns the stats of
+    blk5_phases["fast"]."""
+    ranked = stratify(snp_data.codes, snp_data.acgtn_table, snp_data.pos,
+                      snp_data.r, block)
+    paint_sorted = np.concatenate(
+        [paint[ranked.perm],
+         np.zeros(ranked.pos.size - snp_data.nsnp, dtype=np.int64)]
+    )
+    valid = np.arange(ranked.pos.size) < snp_data.nsnp
+    nb = ranked.rank_codes.shape[1] // ranked.block
+    if device_budget_bytes is None:
+        device_budget_bytes = auto_budget(device)  # the card's memory
+    streaming, max_slabs, panel = plan_budget(
+        snp_data.nseq, ranked.block, nb, device_budget_bytes
+    )
+    runner = FastTileRunner(
+        ranked, paint_sorted, valid, np.asarray(hdw, np.float64), neff,
+        snp_data.g, sr_dist, lr_retain_links, lr_links_approx, sr_links,
+        max_slabs=max_slabs, device=device,
+    )
+    depth = max(1, int(pipeline_depth))
+
+    def depth_limit() -> int:
+        """In-flight tile cap.  Extract-mode tiles hold O(P_sr + K) bytes,
+        but full-transfer tiles (post-demotion) each hold a B x B f32
+        output: under a streaming budget, clamp to what ~20% of the
+        budget holds (checked per tile: demotion can flip the mode)."""
+        if not streaming or runner._mode() != "full":
+            return depth
+        tile_bytes = ranked.block * ranked.block * 4
+        return min(depth, max(1, int(device_budget_bytes * 0.2 / tile_bytes)))
+
+    stats = dict(tiles=0, retries=0, fallbacks=0, demoted=False, uploads=0,
+                 hits=0, dispatch_s=0.0, finish_s=0.0, sr_emit_s=0.0, ckpt_s=0.0,
+                 ckpt_hits=0,
+                 streaming=streaming, max_slabs=max_slabs, panel=panel,
+                 depth=depth)
+    npairs_total = nb * (nb + 1) // 2
+    queue: deque = deque()
+    # SR pairs are emitted in the canonical tile order (that of a resident
+    # run and of backend "spmd"), whatever order the panels visit
+    canonical = list(panel_pair_order(nb, nb))
+    sr_ready: dict = {}
+    n_emitted = 0
+
+    def finish_one():
+        nonlocal n_emitted
+        key, bi, bj, pending, hit, t0 = queue.popleft()
+        if hit is not None:  # a checkpointed tile, replayed in its place
+            t1 = time.perf_counter()
+            sr = (hit["sr_idx"], hit["sr_vals"])
+            replay_lr_rows(hit, lr_sink)
+            stats["ckpt_s"] += time.perf_counter() - t1
+        else:
+            rows: list = []  # the tile's LR rows, for its checkpoint
+
+            def sink(*cols):
+                rows.append(tuple(np.asarray(c) for c in cols))
+                lr_sink(*cols)
+
+            t1 = time.perf_counter()
+            with annotate("fast_finish"):
+                sr = runner.finish(pending, sink)
+            t2 = time.perf_counter()
+            stats["finish_s"] += t2 - t1
+            if chkpt is not None:
+                chkpt.save(key, tile_payload(sr, rows))
+                stats["ckpt_s"] += time.perf_counter() - t2
+        sr_ready[bi, bj] = sr
+        t1 = time.perf_counter()
+        while n_emitted < npairs_total and canonical[n_emitted] in sr_ready:
+            runner.emit_sr(*canonical[n_emitted],
+                           *sr_ready.pop(canonical[n_emitted]))
+            n_emitted += 1
+        stats["sr_emit_s"] += time.perf_counter() - t1
+        stats["tiles"] += 1
+        if verbose:
+            print(f"Block {stats['tiles']} of {npairs_total} ... "
+                  f"done in {time.time() - t0:.2f} s")
+
+    cur_panel = -1
+    for bi, bj in panel_pair_order(nb, panel):
+        p = bi // panel
+        if p != cur_panel:
+            cur_panel = p
+            runner.pin_panel(range(p * panel, min((p + 1) * panel, nb)))
+        key = f"fast_{bi}_{bj}"
+        t0 = time.time()
+        t1 = time.perf_counter()
+        hit = chkpt.load(key) if chkpt is not None else None
+        if hit is not None:
+            stats["ckpt_hits"] += 1
+            stats["ckpt_s"] += time.perf_counter() - t1
+            queue.append((key, bi, bj, None, hit, t0))
+        else:
+            t1 = time.perf_counter()
+            with annotate("fast_dispatch"):
+                pending = runner.dispatch(bi, bj)
+            stats["dispatch_s"] += time.perf_counter() - t1
+            queue.append((key, bi, bj, pending, None, t0))
+        while len(queue) >= depth_limit():
+            finish_one()
+    while queue:
+        finish_one()
+    runner.unpin_all()
+    stats.update(retries=runner.retries, fallbacks=runner.fallbacks,
+                 demoted=runner._demoted, uploads=runner.cache.uploads,
+                 hits=runner.cache.hits)
+    for k in ("dispatch_s", "finish_s", "sr_emit_s", "ckpt_s"):
+        stats[k] = round(stats[k], 3)
+    if verbose:
+        print(f"Slab cache: {stats['uploads']} uploads, {stats['hits']} hits"
+              f" over {npairs_total} tiles ({'streamed' if streaming else 'resident'},"
+              f" {max_slabs or nb} slots, panel {panel})")
+    return stats

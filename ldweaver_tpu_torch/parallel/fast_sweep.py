@@ -21,7 +21,11 @@ coming from kernel K1 (ops/rank_mi.py).
 The LR-only sweep (`prepare_fast_sweep`, `fast_lr_topk`; the sweep leg of
 the JAX package's bench.py) keeps the rank codes resident on one device
 and walks every block pair bucket by bucket, folding each tile's two-stage
-LR top-k into a running per-bucket top-k, then merges the buckets.
+LR top-k into a running per-bucket top-k, then merges the buckets.  When
+the codes exceed 60% of the device budget it streams them instead
+(`_fast_lr_topk_streaming`): the tiles in panel order on a slab cache's
+pool (parallel/slabs.py), their top-k folded on the device into a running
+top-k 32 tiles at a time.
 (2, 2, pure) tiles wider than 1024 columns go through kernel K2
 (ops/fused_tile.py: tile, LR mask and 128-column chunk max in one pass);
 every other tile through K1, the mask in torch ops and `tile_lr_topk`.
@@ -223,7 +227,8 @@ def tile_masks(pos_f, pos_t, val_f, val_t, same_block: bool, g: int,
         ok = ok & (ar_f[:, None] > ar_t[None, :])
     diff = pos_t[None, :] - pos_f[:, None]
     d = torch.where(diff < 0, diff + g, diff)
-    half_g = torch.tensor(0.5 * g, dtype=f32, device=dev)
+    # a fill, not a copy from the host: no wait for the queued work
+    half_g = torch.full((), 0.5 * g, dtype=f32, device=dev)
     lens = half_g - torch.abs(d.to(f32) - half_g)
     return ok & (lens <= sr_dist), ok & (lens > sr_dist)
 
@@ -260,10 +265,11 @@ def tile_lr_topk(masked, block_f: int, block_t: int, topk: int):
 @dataclasses.dataclass
 class FastSweepState:
     """One-time preparation of the LR-only sweep on one device: the
-    stratified rank codes and per-site arrays resident there
-    (spmd_sweep.DeviceInputs), the allele-rank marginals of every block,
-    and the block pairs bucketed by (Rf, Rt, both-blocks-pure).  Prepare
-    once, sweep many."""
+    stratified rank codes and per-site arrays there
+    (spmd_sweep.DeviceInputs; when streaming, its codes are the pool of
+    `slab_cache`), the allele-rank marginals of every block, and the
+    block pairs bucketed by (Rf, Rt, both-blocks-pure).  Prepare once,
+    sweep many."""
 
     ranked: RankedSnps
     buckets: Dict[Tuple[int, int, bool], List[Tuple[int, int]]]
@@ -271,6 +277,9 @@ class FastSweepState:
     marg: torch.Tensor  # [nb, 5, block] f32 weighted rank counts
     block: int
     g: int
+    streaming: bool = False
+    slab_cache: object = None  # slabs.SlabCache when streaming
+    panel: int = 0
 
 
 def prepare_fast_sweep(
@@ -283,10 +292,12 @@ def prepare_fast_sweep(
 ) -> FastSweepState:
     """Rank-encode + stratify + move the SNP tensor to `device`.
 
-    One device, resident codes only: `n_devices > 1` and a budget under
-    which the JAX package would stream slabs (slabs.would_stream) raise
-    NotImplementedError naming their ROADMAP items."""
-    from ldweaver_tpu_torch.parallel.slabs import auto_budget, would_stream
+    If the rank codes exceed 60% of `hbm_budget_bytes` (by default the
+    card's memory), the sweep streams them through a slab cache in panel
+    order (slabs.plan_budget): the device holds only the pool, and the
+    marginals are computed slab by slab here.  `n_devices > 1` raises
+    NotImplementedError (ROADMAP.md item 10)."""
+    from ldweaver_tpu_torch.parallel.slabs import SlabCache, auto_budget, plan_budget
     from ldweaver_tpu_torch.parallel.spmd_sweep import device_inputs
 
     check_supported(n_devices=n_devices)
@@ -297,12 +308,6 @@ def prepare_fast_sweep(
         snp_data.codes, snp_data.acgtn_table, snp_data.pos, snp_data.r, block
     )
     nb = ranked.rank_codes.shape[1] // block
-    if would_stream(snp_data.nseq, block, nb, hbm_budget_bytes):
-        raise NotImplementedError(
-            f"the rank codes ({snp_data.nseq} x {nb * block} bytes) exceed the"
-            f" budget of {hbm_budget_bytes} bytes: slab streaming is not"
-            " ported yet (ROADMAP.md item 9)"
-        )
     valid = np.arange(ranked.rank_codes.shape[1]) < snp_data.nsnp
 
     # bucket key = (Rf, Rt, both-blocks-pure), as fast_sweep.py:569-577
@@ -316,15 +321,31 @@ def prepare_fast_sweep(
             )
             buckets.setdefault(key, []).append((i, j))
 
-    dev = device_inputs(ranked, valid, hdw, np.asarray(hdw, np.float64).sum(),
-                        device)
-    marg = torch.stack([
-        rank_marginals(dev.codes, i * block, block, dev.w32, 5)
-        for i in range(nb)
-    ])
+    neff = np.asarray(hdw, np.float64).sum()
+    streaming, max_slabs, panel = plan_budget(snp_data.nseq, block, nb,
+                                              hbm_budget_bytes)
+    cache = None
+    if streaming:
+        cache = SlabCache(ranked.rank_codes, block, max_slabs, device=device)
+        dev = device_inputs(ranked, valid, hdw, neff, device, codes=cache.pool)
+        # each block's marginals from a [nseq, block] copy of its slab: the
+        # same values as from the resident tensor
+        tmp = torch.empty((snp_data.nseq, block), dtype=torch.uint8,
+                          device=device)
+        margs = []
+        for i in range(nb):
+            cache.write_slab(i, tmp)
+            margs.append(rank_marginals(tmp, 0, block, dev.w32, 5))
+        marg = torch.stack(margs)
+    else:
+        dev = device_inputs(ranked, valid, hdw, neff, device)
+        marg = torch.stack([
+            rank_marginals(dev.codes, i * block, block, dev.w32, 5)
+            for i in range(nb)
+        ])
     return FastSweepState(
         ranked=ranked, buckets=buckets, dev=dev, marg=marg, block=block,
-        g=snp_data.g,
+        g=snp_data.g, streaming=streaming, slab_cache=cache, panel=panel,
     )
 
 
@@ -335,23 +356,26 @@ def uses_fused_tile(key: Tuple[int, int, bool], block: int) -> bool:
 
 
 def _tile_candidates(state: FastSweepState, bi: int, bj: int,
-                     key: Tuple[int, int, bool], sr_dist: int, topk: int):
+                     key: Tuple[int, int, bool], sr_dist: int, topk: int,
+                     cols: Optional[Tuple[int, int]] = None):
     """One tile's LR top-k (vals, flat in-tile idx), the scan body of
-    `_build_bucket_sweep` (fast_sweep.py:432-464)."""
+    `_build_bucket_sweep` (fast_sweep.py:432-464).  `cols` are the code
+    columns of the two blocks in a slab pool (by default their own)."""
     dev, B, g = state.dev, state.block, int(state.g)
     Rf, Rt, pure = key
     fs, ts = bi * B, bj * B
+    cf, ct = cols if cols is not None else (fs, ts)
     pos_f, pos_t = dev.pos[fs : fs + B], dev.pos[ts : ts + B]
     val_f, val_t = dev.valid[fs : fs + B], dev.valid[ts : ts + B]
     if uses_fused_tile(key, B):
-        c_vals, cols = fused_tile_stage1(
-            dev.codes, fs, ts, B, B, dev.wparts, state.marg[bi, :2],
+        c_vals, c_cols = fused_tile_stage1(
+            dev.codes, cf, ct, B, B, dev.wparts, state.marg[bi, :2],
             state.marg[bj, :2], pos_f, pos_t, val_f, val_t, dev.neff,
             bi == bj, g=g, sr_dist=sr_dist,
         )
-        return chunk_topk(c_vals, cols, B, topk)
+        return chunk_topk(c_vals, c_cols, B, topk)
     mi = rank_mi_tile(
-        dev.codes, fs, ts, B, B, dev.wparts, state.marg[bi, :Rf],
+        dev.codes, cf, ct, B, B, dev.wparts, state.marg[bi, :Rf],
         state.marg[bj, :Rt], dev.r[fs : fs + B], dev.r[ts : ts + B], dev.neff,
         Rf, Rt, pure,
     )
@@ -380,6 +404,8 @@ def fast_lr_topk(
         state = prepare_fast_sweep(
             snp_data, hdw, block, n_devices, hbm_budget_bytes, device
         )
+    if state.streaming:
+        return _fast_lr_topk_streaming(state, int(sr_dist), topk)
     B = state.block
     k_each = min(topk, B * B)
     d = state.dev.codes.device
@@ -421,5 +447,68 @@ def fast_lr_topk(
     ranked = state.ranked
     pos2 = ranked.pos[bi * B + mx // B]
     pos1 = ranked.pos[bj * B + mx % B]
+    order = np.argsort(-mv, kind="stable")
+    return pos1[order], pos2[order], mv[order]
+
+
+def _fast_lr_topk_streaming(state: FastSweepState, sr_dist: int, topk: int,
+                            merge_chunk: int = 32):
+    """Slab-streaming LR-only sweep (`_fast_lr_topk_streaming`,
+    fast_sweep.py:719-918): the tiles in panel order, each computed on the
+    slab pool at its two slabs' columns ((2, 2, pure) tiles through K2,
+    the rest through K1), their top-k folded into a running top-k on the
+    device every `merge_chunk` tiles (the carry first, then the tiles in
+    order, so earlier candidates win ties), then one pull."""
+    from ldweaver_tpu_torch.parallel.slabs import panel_pair_order
+
+    ranked = state.ranked
+    B = state.block
+    nb = ranked.rank_codes.shape[1] // B
+    cache, panel = state.slab_cache, state.panel
+    k_each = min(topk, B * B)
+    d = state.dev.codes.device
+    best_v = torch.full((topk,), float("-inf"), dtype=torch.float32, device=d)
+    best_t = torch.zeros((topk,), dtype=torch.int32, device=d)
+    best_x = torch.zeros((topk,), dtype=torch.int32, device=d)
+    tile_meta: List[Tuple[int, int]] = []
+    pend: list = []
+
+    def flush():
+        nonlocal best_v, best_t, best_x
+        if not pend:
+            return
+        cat_v = torch.cat([best_v] + [v for v, _, _ in pend])
+        cat_t = torch.cat([best_t] + [t for _, t, _ in pend])
+        cat_x = torch.cat([best_x] + [x for _, _, x in pend])
+        best_v, sel = top_k(cat_v, topk)
+        best_t, best_x = cat_t[sel], cat_x[sel]
+        pend.clear()
+
+    cur_panel = -1
+    for bi, bj in panel_pair_order(nb, panel):
+        p = bi // panel
+        if p != cur_panel:
+            cur_panel = p
+            cache.unpin()
+            cache.pin(range(p * panel, min((p + 1) * panel, nb)))
+        cols = (cache.get(bi), cache.get(bj))
+        key = (int(ranked.block_rmax[bi]), int(ranked.block_rmax[bj]),
+               bool(ranked.block_pure[bi]) and bool(ranked.block_pure[bj]))
+        vals, idx = _tile_candidates(state, bi, bj, key, sr_dist, k_each, cols)
+        pend.append((vals, torch.full_like(idx, len(tile_meta)), idx))
+        tile_meta.append((bi, bj))
+        if len(pend) >= merge_chunk:
+            flush()
+    flush()
+    cache.unpin()
+
+    mv = best_v.cpu().numpy()
+    mt = best_t.cpu().numpy().astype(np.int64)
+    mx = best_x.cpu().numpy().astype(np.int64)
+    keep = np.isfinite(mv)
+    mv, mt, mx = mv[keep], mt[keep], mx[keep]
+    meta = np.asarray(tile_meta, np.int64).reshape(-1, 2)
+    pos2 = ranked.pos[meta[mt, 0] * B + mx // B]
+    pos1 = ranked.pos[meta[mt, 1] * B + mx % B]
     order = np.argsort(-mv, kind="stable")
     return pos1[order], pos2[order], mv[order]

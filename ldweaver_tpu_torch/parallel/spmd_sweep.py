@@ -1,12 +1,13 @@
 """BLK5 link extraction on one GPU: the port of the JAX package's SPMD
 sweep (parallel/spmd_sweep.py there).
 
-Per tile of the r-stratified block-pair grid, `extract_tile` computes the
-MI tile with kernel K1 and extracts on the device
-  * **SR links**: every short-range pair, compacted row-major
-    (`torch.nonzero` of the row-major SR mask gives the ascending flat
-    indices that the reference's cumsum + scatter produces).  The count is
-    checked against the exact host count from the positions;
+Per tile of the r-stratified block-pair grid, `dispatch_extract` queues
+the MI tile (kernel K1) and its extraction on the device without waiting
+for it, and `finish_extract` waits for the results (`extract_tile` does
+both; the fast backend's runner keeps tiles queued in between):
+  * **SR links**: every short-range pair, compacted row-major (a cumsum
+    and scatter into the exact host count from the positions, as the
+    reference does; the device's own count is checked against it);
   * **LR links**: an exact two-stage top-K (per-row stable sort, then a
     stable sort of the survivors, lowest flat index first on ties, as
     `lax.top_k`) plus an exactness certificate.  The host interpolates the
@@ -20,8 +21,9 @@ that, an exact full-tile extraction.  With the on-device SR reduction
 (`sr_reduce` "auto" when the table fits, or "device") every tile's SR
 pairs stay on the card and `parallel/sr_reduce.run_device_reduction`
 reduces them after the loop; otherwise they are copied to the host and
-emitted there.  The host helpers (SR counts, top-K sizing, emission) are
-copies of the JAX package's.
+emitted there.  With a checkpoint directory the sweep resumes tile by
+tile.  The host helpers (SR counts, top-K sizing, emission) are copies of
+the JAX package's.
 """
 
 from __future__ import annotations
@@ -235,13 +237,30 @@ def emit_tile_extract(
             apply_lr_quantile=False, lr_thresh=q,
         )
     if parts != "lr" and res.n_sr:
-        sidx = res.sr_idx[: res.n_sr].astype(np.int64)
-        svals = res.sr_vals[: res.n_sr].astype(np.float64)
-        _emit_pairs(
-            sidx // B, sidx % B, svals, pos_f, pos_t, pnt_f, pnt_t,
-            g, sr_dist, None, sr_links, lr_rows_sink,
+        emit_sr_pairs(
+            res.sr_idx[: res.n_sr], res.sr_vals[: res.n_sr], B=B, pos_f=pos_f,
+            pos_t=pos_t, pnt_f=pnt_f, pnt_t=pnt_t, g=g, sr_dist=sr_dist,
+            sr_links=sr_links, lr_rows_sink=lr_rows_sink,
         )
     return True
+
+
+def emit_sr_pairs(sr_idx: np.ndarray, sr_vals: np.ndarray, *, B: int,
+                  pos_f: np.ndarray, pos_t: np.ndarray, pnt_f: np.ndarray,
+                  pnt_t: np.ndarray, g: int, sr_dist: int, sr_links: List[list],
+                  lr_rows_sink: Callable, **_unused) -> None:
+    """Emit one tile's SR pairs (row-major flat indices, f32 MI) into
+    `sr_links`: from an extraction, or replayed from a checkpoint."""
+    from ldweaver_tpu_torch.core.sweep import _emit_pairs
+
+    if len(sr_idx) == 0:
+        return
+    sidx = np.asarray(sr_idx).astype(np.int64)
+    svals = np.asarray(sr_vals).astype(np.float64)
+    _emit_pairs(
+        sidx // B, sidx % B, svals, pos_f, pos_t, pnt_f, pnt_t,
+        g, sr_dist, None, sr_links, lr_rows_sink,
+    )
 
 
 # --------------------------------------------------------------------------
@@ -249,7 +268,9 @@ def emit_tile_extract(
 # --------------------------------------------------------------------------
 @dataclasses.dataclass
 class DeviceInputs:
-    codes: torch.Tensor  # [nseq, nsnp_pad] u8 rank codes, sequence-major
+    # [nseq, ncols] u8 rank codes, sequence-major: the whole stratified
+    # tensor, or the pool of a slab cache (parallel/slabs.py)
+    codes: torch.Tensor
     r: torch.Tensor  # [nsnp_pad] f32 distinct-allele counts
     pos: torch.Tensor  # [nsnp_pad] i32 genome positions
     valid: torch.Tensor  # [nsnp_pad] bool, False on pad sites
@@ -263,14 +284,18 @@ class DeviceInputs:
 
 def device_inputs(ranked: RankedSnps, valid: np.ndarray, hdw: np.ndarray,
                   neff: float, device,
-                  paint_sorted: Optional[np.ndarray] = None) -> DeviceInputs:
+                  paint_sorted: Optional[np.ndarray] = None,
+                  codes: Optional[torch.Tensor] = None) -> DeviceInputs:
     """Upload what the sweep reads on the device: the stratified rank
-    codes (either package's `stratify` output), r, positions, validity,
-    the weights and their bf16 split, neff and, when given, the sites'
-    clusters in stratified order."""
+    codes (either package's `stratify` output; or `codes`, a slab pool
+    that the caller fills), r, positions, validity, the weights and their
+    bf16 split, neff and, when given, the sites' clusters in stratified
+    order."""
     w32, parts = wparts(np.asarray(hdw, np.float64))
+    if codes is None:
+        codes = torch.from_numpy(np.ascontiguousarray(ranked.rank_codes)).to(device)
     return DeviceInputs(
-        codes=torch.from_numpy(np.ascontiguousarray(ranked.rank_codes)).to(device),
+        codes=codes,
         r=torch.from_numpy(np.asarray(ranked.r, np.float32)).to(device),
         pos=torch.from_numpy(np.asarray(ranked.pos, np.int32)).to(device),
         valid=torch.from_numpy(np.asarray(valid, bool)).to(device),
@@ -286,28 +311,75 @@ def device_inputs(ranked: RankedSnps, valid: np.ndarray, hdw: np.ndarray,
 # One tile -> link extraction (port of `_extract_body`)
 # --------------------------------------------------------------------------
 def tile_mi(dev: DeviceInputs, bi: int, bj: int, block: int, Rf: int,
-            Rt: int, pure: bool) -> torch.Tensor:
-    """The [block, block] MI tile of block pair (bi, bj)."""
+            Rt: int, pure: bool,
+            cols: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """The [block, block] MI tile of block pair (bi, bj).  `cols` are the
+    code-tensor column offsets of the two blocks (a slab pool's slots);
+    by default the blocks' own offsets bi * block, bj * block."""
     fs, ts = bi * block, bj * block
+    cf, ct = cols if cols is not None else (fs, ts)
     return rank_tile_mi(
-        dev.codes, fs, ts, block, block, dev.w32, dev.wparts,
+        dev.codes, cf, ct, block, block, dev.w32, dev.wparts,
         dev.r[fs : fs + block], dev.r[ts : ts + block], dev.neff,
         Rf, Rt, pure,
     )
 
 
-def extract_tile(
+def to_host(t: torch.Tensor) -> torch.Tensor:
+    """Queue the copy of a card tensor into pinned host memory (the caller
+    waits on an event recorded after it); a CPU tensor is returned as
+    is."""
+    if t.device.type != "cuda":
+        return t
+    h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    h.copy_(t, non_blocking=True)
+    return h
+
+
+def compact_indices(flags: torch.Tensor, size: Optional[int]) -> torch.Tensor:
+    """Ascending indices of the True entries of a 1-D bool tensor, as
+    i32.  With the count known on the host (`size`) no host sync is
+    needed: a cumsum gives each entry its slot and a scatter places it
+    (entries past `size` land in a discarded extra slot; the caller
+    checks the device's own count).  Without it, torch.nonzero."""
+    if size is None:
+        return torch.nonzero(flags).reshape(-1).to(torch.int32)
+    slot = torch.cumsum(flags, 0, dtype=torch.int32)
+    dest = torch.where(flags & (slot <= size), slot - 1, size).to(torch.int64)
+    out = torch.empty(size + 1, dtype=torch.int32, device=flags.device)
+    out.scatter_(0, dest, torch.arange(flags.numel(), dtype=torch.int32,
+                                       device=flags.device))
+    return out[:size]
+
+
+@dataclasses.dataclass
+class PendingExtract:
+    """One dispatched extraction: host copies in flight (or device tensors
+    for kept SR pairs) and the event after which they are complete."""
+
+    head: torch.Tensor  # [4] i64: n_lr, row_max, exact, n_sr (device count)
+    vals: torch.Tensor
+    idx: torch.Tensor
+    sr_idx: torch.Tensor
+    sr_vals: torch.Tensor
+    keep_sr: bool
+    event: Optional[object] = None  # torch.cuda.Event on the card
+
+
+def dispatch_extract(
     dev: DeviceInputs, bi: int, bj: int, *, block: int, sr_dist: int,
     g: int, K: int, k_row: int, prob: float, Rf: int, Rt: int, pure: bool,
-    keep_sr: bool = False,
-) -> TileExtract:
-    """One tile -> SR pairs, LR top-K and certificate (the JAX package's
-    `_extract_body`, spmd_sweep.py:224-326).  With keep_sr the SR pairs
-    stay device tensors (i32 flat indices, f32 MI) for the on-device SR
-    reduction; otherwise they are copied to the host."""
+    keep_sr: bool = False, n_sr: Optional[int] = None,
+    cols: Optional[Tuple[int, int]] = None,
+) -> PendingExtract:
+    """Queue one tile's extraction (the JAX package's `_extract_body`,
+    spmd_sweep.py:224-326) and the copies of its results to the host,
+    without waiting for the card when `n_sr`, the tile's exact SR pair
+    count, is given.  With keep_sr the SR pairs stay device tensors (i32
+    flat indices, f32 MI) for the on-device SR reduction."""
     B = block
     fs, ts = bi * B, bj * B
-    mi = tile_mi(dev, bi, bj, B, Rf, Rt, pure)
+    mi = tile_mi(dev, bi, bj, B, Rf, Rt, pure, cols)
     f32 = torch.float32
     sr_ok, lr_ok = tile_masks(
         dev.pos[fs : fs + B], dev.pos[ts : ts + B], dev.valid[fs : fs + B],
@@ -315,9 +387,9 @@ def extract_tile(
     )
 
     # ---- SR: exact row-major compaction
-    sr_idx = torch.nonzero(sr_ok.reshape(-1)).reshape(-1)
+    sr_flags = sr_ok.reshape(-1)
+    sr_idx = compact_indices(sr_flags, n_sr)
     sr_vals = mi.reshape(-1)[sr_idx]
-    sr_idx = sr_idx.to(torch.int32)
 
     # ---- LR: exact two-stage top-K + exactness certificate
     neg = torch.where(lr_ok, mi, float("-inf"))
@@ -326,53 +398,81 @@ def extract_tile(
     vals, idx = two_stage_topk(neg, k_row, K)
     n_out = vals.numel()
     # certificate at the needed depth (spmd_sweep.py:306-321)
-    prob_t = torch.tensor(prob, dtype=f32, device=mi.device)
+    prob_t = torch.full((), prob, dtype=f32, device=mi.device)
     i_cert = n_lr - torch.floor((n_lr.to(f32) - 1.0) * prob_t).to(n_lr.dtype) + 8
     i_cert = torch.clamp(i_cert, 0, n_out - 1)
     i_cert = torch.minimum(i_cert, torch.clamp(n_lr - 1, min=0))
-    vstar = vals[i_cert]
+    # a 1-element index: indexing with a 0-d tensor would read it on the host
+    vstar = vals.index_select(0, i_cert.reshape(1)).reshape(())
     above = (neg >= vstar) & lr_ok
     tot_max = lr_row.max()
     abv_max = above.sum(dim=1).max()
     exact = (tot_max <= k_row) | (torch.isfinite(vstar) & (abv_max <= k_row))
+    head = torch.stack([n_lr, tot_max, exact.to(n_lr.dtype),
+                        sr_flags.sum().to(n_lr.dtype)])
+    p = PendingExtract(
+        head=to_host(head), vals=to_host(vals),
+        idx=to_host(idx.to(torch.int32)),
+        sr_idx=sr_idx if keep_sr else to_host(sr_idx),
+        sr_vals=sr_vals if keep_sr else to_host(sr_vals), keep_sr=keep_sr,
+    )
+    if mi.device.type == "cuda":
+        p.event = torch.cuda.Event()
+        p.event.record()
+    return p
 
-    head = torch.stack([n_lr, tot_max, exact.to(n_lr.dtype)]).cpu().tolist()
+
+def finish_extract(p: PendingExtract) -> TileExtract:
+    """Wait for a dispatched extraction and return its result."""
+    if p.event is not None:
+        p.event.synchronize()
+    n_lr, row_max, exact, n_sr = p.head.tolist()
     return TileExtract(
-        n_lr=int(head[0]),
-        exact=bool(head[2]),
-        vals=vals.cpu().numpy(),
-        idx=idx.to(torch.int32).cpu().numpy(),
-        n_sr=int(sr_idx.numel()),
-        sr_idx=sr_idx if keep_sr else sr_idx.cpu().numpy(),
-        sr_vals=sr_vals if keep_sr else sr_vals.cpu().numpy(),
-        row_max=int(head[1]),
+        n_lr=int(n_lr),
+        exact=bool(exact),
+        vals=p.vals.numpy(),
+        idx=p.idx.numpy(),
+        n_sr=int(n_sr),
+        sr_idx=p.sr_idx if p.keep_sr else p.sr_idx.numpy(),
+        sr_vals=p.sr_vals if p.keep_sr else p.sr_vals.numpy(),
+        row_max=int(row_max),
     )
 
 
-def fallback_full_tile(
-    dev: DeviceInputs, ranked: RankedSnps, valid: np.ndarray,
+def extract_tile(
+    dev: DeviceInputs, bi: int, bj: int, *, block: int, sr_dist: int,
+    g: int, K: int, k_row: int, prob: float, Rf: int, Rt: int, pure: bool,
+    keep_sr: bool = False, n_sr: Optional[int] = None,
+    cols: Optional[Tuple[int, int]] = None,
+) -> TileExtract:
+    """One tile -> SR pairs, LR top-K and certificate, synchronously
+    (`dispatch_extract` then `finish_extract`)."""
+    return finish_extract(dispatch_extract(
+        dev, bi, bj, block=block, sr_dist=sr_dist, g=g, K=K, k_row=k_row,
+        prob=prob, Rf=Rf, Rt=Rt, pure=pure, keep_sr=keep_sr, n_sr=n_sr,
+        cols=cols,
+    ))
+
+
+def full_tile_emit(
+    mi: np.ndarray, ranked: RankedSnps, valid: np.ndarray,
     paint_sorted: np.ndarray, bi: int, bj: int, g: int, sr_dist: int,
     lr_prob: Optional[float], sr_links: List[list], lr_rows_sink: Callable,
     emit_sr: bool = True,
-) -> None:
-    """Exact full-tile extraction for tiles the bounded extraction cannot
-    certify (the JAX package's `_fallback_full_tile`).  With
-    emit_sr=False only the LR side is emitted (the tile's SR links were
-    already single-sourced from the primary extraction)."""
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Host extraction of a whole [B, B] f32 MI tile (the JAX package's
+    `_finish_full` / `_fallback_full_tile`): every valid pair (i > j on a
+    diagonal tile), the f64 type-7 LR retention over the tile's LR
+    values.  With emit_sr=False only the LR side is emitted (the tile's SR
+    links were already single-sourced from the primary extraction).
+    Returns the tile's SR pairs (i32 flat index, f32 MI) as emitted."""
+    from ldweaver_tpu_torch.core.mi import circular_len
     from ldweaver_tpu_torch.core.sweep import _emit_pairs
 
-    if not emit_sr:
-        sr_links = [[] for _ in sr_links]  # discard SR appends
     B = ranked.block
     f_sl = slice(bi * B, (bi + 1) * B)
     t_sl = slice(bj * B, (bj + 1) * B)
-    pure = bool(ranked.block_pure[bi]) and bool(ranked.block_pure[bj])
-    mi = tile_mi(
-        dev, bi, bj, B, int(ranked.block_rmax[bi]), int(ranked.block_rmax[bj]),
-        pure,
-    ).cpu().numpy().astype(np.float64)
-    val_f = valid[f_sl]
-    val_t = valid[t_sl]
+    pos_f, pos_t = ranked.pos[f_sl], ranked.pos[t_sl]
     if bi == bj:
         fii, fjj = np.tril_indices(B, -1)
         fii = fii.astype(np.int32)
@@ -380,15 +480,88 @@ def fallback_full_tile(
     else:
         fii = np.repeat(np.arange(B, dtype=np.int32), B)
         fjj = np.tile(np.arange(B, dtype=np.int32), B)
-    okm = val_f[fii] & val_t[fjj]
+    okm = valid[f_sl][fii] & valid[t_sl][fjj]
     fii, fjj = fii[okm], fjj[okm]
-    if fii.size:
-        _emit_pairs(
-            fii, fjj, mi[fii, fjj],
-            ranked.pos[f_sl], ranked.pos[t_sl],
-            paint_sorted[f_sl], paint_sorted[t_sl],
-            g, sr_dist, lr_prob, sr_links, lr_rows_sink,
-        )
+    if fii.size == 0:
+        return np.zeros(0, np.int32), np.zeros(0, np.float32)
+    vals = mi[fii, fjj]
+    lens = circular_len(pos_t[fjj], pos_f[fii], g)  # symmetric
+    sr = lens <= sr_dist
+    record = ((fii[sr].astype(np.int64) * B + fjj[sr]).astype(np.int32),
+              vals[sr].astype(np.float32))
+    _emit_pairs(
+        fii, fjj, vals.astype(np.float64), pos_f, pos_t,
+        paint_sorted[f_sl], paint_sorted[t_sl], g, sr_dist, lr_prob,
+        sr_links if emit_sr else [[] for _ in sr_links], lr_rows_sink,
+    )
+    return record
+
+
+def fallback_full_tile(
+    dev: DeviceInputs, ranked: RankedSnps, valid: np.ndarray,
+    paint_sorted: np.ndarray, bi: int, bj: int, g: int, sr_dist: int,
+    lr_prob: Optional[float], sr_links: List[list], lr_rows_sink: Callable,
+    emit_sr: bool = True, cols: Optional[Tuple[int, int]] = None,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Exact full-tile extraction for tiles the bounded extraction cannot
+    certify: the tile on the device, then `full_tile_emit`."""
+    B = ranked.block
+    pure = bool(ranked.block_pure[bi]) and bool(ranked.block_pure[bj])
+    mi = tile_mi(
+        dev, bi, bj, B, int(ranked.block_rmax[bi]), int(ranked.block_rmax[bj]),
+        pure, cols,
+    ).cpu().numpy()
+    return full_tile_emit(mi, ranked, valid, paint_sorted, bi, bj, g, sr_dist,
+                          lr_prob, sr_links, lr_rows_sink, emit_sr)
+
+
+def recover_lr(
+    dev: DeviceInputs, ranked: RankedSnps, valid: np.ndarray,
+    paint_sorted: np.ndarray, res: TileExtract, bi: int, bj: int, *,
+    g: int, sr_dist: int, lr_prob: Optional[float], K: int, k_row: int,
+    emit_kw: dict, cols: Optional[Tuple[int, int]] = None,
+) -> Tuple[bool, bool]:
+    """The LR side of a tile whose primary extraction failed its
+    certificate (its SR side was emitted from the primary result): a
+    boosted-capacity retry when it moves fewer bytes than the B^2 f32
+    tile, else (or if the retry fails too) the exact full tile.  The
+    policy of both JAX sweeps.  Returns (retried, fell_back)."""
+    B = ranked.block
+    Rf, Rt = int(ranked.block_rmax[bi]), int(ranked.block_rmax[bj])
+    pure = bool(ranked.block_pure[bi]) and bool(ranked.block_pure[bj])
+    retried = False
+    if lr_prob is not None:
+        K2, k2 = retry_dims(res, B, lr_prob, K, k_row)
+        if K2 * 8 < B * B * 4:
+            res2 = extract_tile(  # its SR side is unused: no copy
+                dev, bi, bj, block=B, sr_dist=int(sr_dist), g=int(g), K=K2,
+                k_row=k2, prob=lr_prob, Rf=Rf, Rt=Rt, pure=pure, keep_sr=True,
+                n_sr=emit_kw["expected_sr"], cols=cols,
+            )
+            retried = True
+            if emit_tile_extract(res2, K=K2, parts="lr", **emit_kw):
+                return True, False
+    fallback_full_tile(
+        dev, ranked, valid, paint_sorted, bi, bj, g, sr_dist, lr_prob,
+        emit_kw["sr_links"], emit_kw["lr_rows_sink"], emit_sr=False, cols=cols,
+    )
+    return retried, True
+
+
+def tile_emit_kw(ranked: RankedSnps, paint_sorted: np.ndarray, bi: int,
+                 bj: int, *, g: int, sr_dist: int, lr_prob: Optional[float],
+                 expected_sr: int, sr_links: List[list],
+                 lr_rows_sink: Callable) -> dict:
+    """The per-tile keyword arguments of `emit_tile_extract`."""
+    B = ranked.block
+    f_sl = slice(bi * B, (bi + 1) * B)
+    t_sl = slice(bj * B, (bj + 1) * B)
+    return dict(
+        B=B, pos_f=ranked.pos[f_sl], pos_t=ranked.pos[t_sl],
+        pnt_f=paint_sorted[f_sl], pnt_t=paint_sorted[t_sl],
+        g=g, sr_dist=sr_dist, lr_prob=lr_prob, expected_sr=int(expected_sr),
+        sr_links=sr_links, lr_rows_sink=lr_rows_sink,
+    )
 
 
 # --------------------------------------------------------------------------
@@ -410,6 +583,7 @@ def blk5_sweep(
     topk_cap: int = 1 << 18,
     verbose: bool = True,
     sr_reduce: str = "auto",
+    checkpoint_dir: Optional[str] = None,
 ) -> Tuple[Dict[str, float], Optional[DeviceSrReduction]]:
     """Run BLK5's sweep tile by tile on `device` and emit links in the
     reference's order (panel order over tiles, row-major inside a tile,
@@ -419,7 +593,21 @@ def blk5_sweep(
     (`sr_reduce.select_mode`): on the host, every SR pair is emitted into
     `sr_links`; on the device, no SR pair is emitted, and the caller
     finishes with `merge_and_sort_sr_links_from_candidates` on the
-    returned reduction (TSVs byte-identical to the host mode)."""
+    returned reduction (TSVs byte-identical to the host mode).
+
+    `checkpoint_dir` resumes the sweep tile by tile (the JAX package's
+    segment checkpoints, at tile granularity): each finished tile's LR
+    rows and, in host SR mode, its SR pairs (i32 flat index, f32 MI) are
+    written atomically, keyed by a manifest of the plan and a checksum of
+    the data.  On a rerun a done tile replays from disk without a
+    dispatch in host mode; in device mode it replays its LR rows and is
+    dispatched again to rebuild its SR pairs on the card."""
+    from ldweaver_tpu_torch.core.sweep import (
+        _BlockCheckpoint,
+        data_crc,
+        replay_lr_rows,
+        tile_payload,
+    )
     from ldweaver_tpu_torch.parallel.slabs import panel_pair_order
 
     ranked = stratify(
@@ -450,6 +638,18 @@ def blk5_sweep(
     stats = dict(tiles=0, retries=0, fallbacks=0, sr_pairs=0, K=K,
                  k_row=k_row, block=B,
                  sr_reduce="device" if device_reduce else "host")
+    ckpt = None
+    if checkpoint_dir:
+        t0 = time.perf_counter()
+        plan = (
+            snp_data.nsnp, snp_data.nseq, g, int(sr_dist),
+            float(lr_retain_links), lr_prob, B, K, k_row, int(topk_cap),
+            stats["sr_reduce"],
+            data_crc(ranked.rank_codes, ranked.pos, ranked.r, paint_sorted,
+                     np.asarray(hdw, np.float64)),
+        )
+        ckpt = _BlockCheckpoint(checkpoint_dir, plan)
+        stats.update(ckpt_hits=0, ckpt_s=time.perf_counter() - t0)
     primary_parts = "lr" if device_reduce else "both"
     # wall split of the primary tiles: extraction (device work up to the
     # copies of its results to the host) and host emission
@@ -458,55 +658,84 @@ def blk5_sweep(
         Rf = int(ranked.block_rmax[bi])
         Rt = int(ranked.block_rmax[bj])
         pure = bool(ranked.block_pure[bi]) and bool(ranked.block_pure[bj])
+        cnt = int(sr_counts[bi, bj])
+        key = f"spmd_{bi}_{bj}"
+        if ckpt is not None:
+            t0 = time.perf_counter()
+            hit = ckpt.load(key)
+            stats["ckpt_s"] += time.perf_counter() - t0
+            if hit is not None:
+                stats["ckpt_hits"] += 1
+                stats["tiles"] += 1
+                stats["sr_pairs"] += cnt
+                emit_kw = tile_emit_kw(
+                    ranked, paint_sorted, bi, bj, g=g, sr_dist=sr_dist,
+                    lr_prob=lr_prob, expected_sr=cnt, sr_links=sr_links,
+                    lr_rows_sink=lr_rows_sink,
+                )
+                if device_reduce:
+                    res = extract_tile(
+                        dev, bi, bj, block=B, sr_dist=int(sr_dist), g=int(g),
+                        K=K, k_row=k_row, prob=prob, Rf=Rf, Rt=Rt, pure=pure,
+                        keep_sr=True, n_sr=cnt,
+                    )
+                    if res.n_sr != cnt:
+                        raise RuntimeError(
+                            f"device SR count {res.n_sr} != host count {cnt}"
+                        )
+                    if cnt:
+                        segs.append((bi, bj, res.sr_idx, res.sr_vals))
+                else:
+                    emit_sr_pairs(hit["sr_idx"], hit["sr_vals"], **emit_kw)
+                replay_lr_rows(hit, lr_rows_sink)
+                continue
+        lr_rows: list = []  # the tile's LR rows, for its checkpoint
+
+        def sink(*cols, _rows=lr_rows):
+            _rows.append(tuple(np.asarray(c) for c in cols))
+            lr_rows_sink(*cols)
+
         t0 = time.perf_counter()
         res = extract_tile(
             dev, bi, bj, block=B, sr_dist=int(sr_dist), g=int(g), K=K,
             k_row=k_row, prob=prob, Rf=Rf, Rt=Rt, pure=pure,
-            keep_sr=device_reduce,
+            keep_sr=device_reduce, n_sr=cnt,
         )
         if device_reduce and res.n_sr:
             segs.append((bi, bj, res.sr_idx, res.sr_vals))
         t1 = time.perf_counter()
         extract_s += t1 - t0
-        f_sl = slice(bi * B, (bi + 1) * B)
-        t_sl = slice(bj * B, (bj + 1) * B)
-        emit_kw = dict(
-            B=B, pos_f=ranked.pos[f_sl], pos_t=ranked.pos[t_sl],
-            pnt_f=paint_sorted[f_sl], pnt_t=paint_sorted[t_sl],
-            g=g, sr_dist=sr_dist, lr_prob=lr_prob,
-            expected_sr=int(sr_counts[bi, bj]),
-            sr_links=sr_links, lr_rows_sink=lr_rows_sink,
+        emit_kw = tile_emit_kw(
+            ranked, paint_sorted, bi, bj, g=g, sr_dist=sr_dist,
+            lr_prob=lr_prob, expected_sr=cnt, sr_links=sr_links,
+            lr_rows_sink=sink,
         )
         stats["tiles"] += 1
         stats["sr_pairs"] += res.n_sr
         done = emit_tile_extract(res, K=K, parts=primary_parts, **emit_kw)
         emit_s += time.perf_counter() - t1
-        if done:
-            continue
-        # the LR certificate failed, but SR compaction is exact regardless:
-        # emit SR once from the primary extraction and redo only the LR side
-        if not device_reduce:
-            emit_tile_extract(res, K=K, parts="sr", **emit_kw)
-        done = False
-        if lr_prob is not None:
-            # boosted-capacity retry before the full-tile transfer — only
-            # when it moves fewer bytes than the B^2 f32 tile
-            K2, k2 = retry_dims(res, B, lr_prob, K, k_row)
-            if K2 * 8 < B * B * 4:
-                res2 = extract_tile(  # its SR side is unused: no copy
-                    dev, bi, bj, block=B, sr_dist=int(sr_dist), g=int(g),
-                    K=K2, k_row=k2, prob=prob, Rf=Rf, Rt=Rt, pure=pure,
-                    keep_sr=True,
-                )
-                stats["retries"] += 1
-                done = emit_tile_extract(res2, K=K2, parts="lr", **emit_kw)
         if not done:
-            stats["fallbacks"] += 1
-            fallback_full_tile(
-                dev, ranked, valid, paint_sorted, bi, bj, g, sr_dist,
-                lr_prob, sr_links, lr_rows_sink, emit_sr=False,
+            # the LR certificate failed, but SR compaction is exact
+            # regardless: emit SR once from the primary extraction and redo
+            # only the LR side
+            if not device_reduce:
+                emit_tile_extract(res, K=K, parts="sr", **emit_kw)
+            retried, fell_back = recover_lr(
+                dev, ranked, valid, paint_sorted, res, bi, bj, g=g,
+                sr_dist=sr_dist, lr_prob=lr_prob, K=K, k_row=k_row,
+                emit_kw=emit_kw,
             )
+            stats["retries"] += retried
+            stats["fallbacks"] += fell_back
+        if ckpt is not None:
+            t0 = time.perf_counter()
+            sr = ((res.sr_idx[: res.n_sr], res.sr_vals[: res.n_sr])
+                  if not device_reduce else None)
+            ckpt.save(key, tile_payload(sr, lr_rows))
+            stats["ckpt_s"] += time.perf_counter() - t0
     stats.update(extract_s=round(extract_s, 3), emit_s=round(emit_s, 3))
+    if ckpt is not None:
+        stats["ckpt_s"] = round(stats["ckpt_s"], 3)
     reduction = None
     if device_reduce:
         reduction = run_device_reduction(
@@ -520,7 +749,9 @@ def blk5_sweep(
             f"BLK5 sweep: {stats['tiles']} tiles on {device},"
             f" {stats['sr_pairs']} sr pairs, {stats['retries']} retries,"
             f" {stats['fallbacks']} fallbacks, SR reduction on the"
-            f" {stats['sr_reduce']}",
+            f" {stats['sr_reduce']}"
+            + (f", {stats['ckpt_hits']} tiles from checkpoints"
+               if ckpt is not None else ""),
             flush=True,
         )
     return stats, reduction

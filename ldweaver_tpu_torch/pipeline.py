@@ -94,10 +94,13 @@ def ldweaver(
     Equivalent of LDWeaver::LDWeaver (R/BacGWES.R:69-492).  BLK4 and BLK5
     run on `device` ("cuda", or "cpu" for the plain PyTorch versions of
     the kernels).  `backend` picks the BLK5 sweep as in the JAX package:
-    "spmd" (the r-stratified tile sweep on kernel K1), or the compat
+    "spmd" (the r-stratified tile sweep on kernel K1), "fast" (the same
+    tiles dispatched ahead of the host emission through a slab cache that
+    `device_budget_bytes` bounds; byte-identical outputs), or the compat
     backends "jax" (the default, f32 PyTorch tiles), "pallas" (kernel K3)
     and "numpy" (the float64 oracle, which also computes BLK4 on the
-    host).  BLK8-BLK12 (annotation, tophits, tanglegram, GWESExplorer
+    host).  BLK5 checkpoints into `dset/mi_chkpt`, so an interrupted run
+    resumes its sweep.  BLK8-BLK12 (annotation, tophits, tanglegram, GWESExplorer
     export, network plot, LR analysis) run with SnpEff_Annotate=True, the
     default; snpEff itself runs when `snpeff_jar_path` and `java` exist,
     the built-in annotator otherwise.  Returns the reduced short-range
@@ -412,6 +415,9 @@ def _ldweaver_body(
                 order_links=order_links,
                 backend=backend,
                 r_compat_sampling=cfg.r_compat_lr_sampling,
+                checkpoint_dir=os.path.join(dset, "mi_chkpt"),
+                device_budget_bytes=cfg.device_budget_bytes,
+                pipeline_depth=cfg.pipeline_depth,
                 n_devices=cfg.n_devices,
                 sr_reduce=cfg.sr_reduce,
                 device=device,

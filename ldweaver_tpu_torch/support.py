@@ -14,31 +14,18 @@ from typing import Optional
 
 import torch
 
-PORTED_BACKENDS = ("spmd", "jax", "pallas", "numpy")
-_BACKEND_ITEMS = {"fast": 9}
+PORTED_BACKENDS = ("fast", "spmd", "jax", "pallas", "numpy")
 
 
 def check_supported(
     backend: str = "spmd",
     n_devices: Optional[int] = None,
-    checkpoint_dir: Optional[str] = None,
 ) -> None:
     if backend not in PORTED_BACKENDS:
-        item = _BACKEND_ITEMS.get(backend)
-        if item is None:
-            raise ValueError(f"unknown MI backend {backend!r}")
-        raise NotImplementedError(
-            f"backend={backend!r} is not ported yet (ROADMAP.md item {item});"
-            f" use one of {PORTED_BACKENDS}"
-        )
+        raise ValueError(f"unknown MI backend {backend!r}")
     if n_devices is not None and n_devices > 1:
         raise NotImplementedError(
             "n_devices > 1: multi-GPU is not ported yet (ROADMAP.md item 10)"
-        )
-    if checkpoint_dir is not None:
-        raise NotImplementedError(
-            "checkpoint_dir: segment resume of the sweep is not ported yet"
-            " (ROADMAP.md item 12)"
         )
 
 

@@ -1,9 +1,12 @@
 """The port's CLI (`python -m ldweaver_tpu_torch.cli`) against the JAX
 package's: every option of the JAX parser parses; `run --device cpu`
 takes a small synthetic input (16 genomes x 100 kb x 800 SNPs) through
-all twelve blocks; `lr-analyse`, `ldmap` and `snp-fasta` write the same
-bytes as the JAX CLI on the same inputs; the options that are not ported
-raise NotImplementedError naming their ROADMAP.md item."""
+all twelve blocks (backend "fast", the default of both CLIs);
+`lr-analyse`, `ldmap` and `snp-fasta` write the same bytes as the JAX CLI
+on the same inputs; `--backend fast`, `--pipeline-depth` and
+`--device-budget-bytes` give the JAX CLI's links; the multi-device
+options, not ported yet, raise NotImplementedError naming their ROADMAP.md
+item."""
 
 import os
 import subprocess
@@ -13,6 +16,7 @@ import pytest
 
 import ldweaver_tpu.cli as jcli
 import ldweaver_tpu_torch.cli as tcli
+from tests.test_torch_fast_sweep import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -29,7 +33,8 @@ def test_every_jax_option_parses():
         missing = set(sub._option_string_actions) - set(port_cmds[name]._option_string_actions)
         assert not missing, (name, missing)
     args = tcli.build_parser().parse_args(["run", "--dset", "d", "--aln", "a.fa"])
-    assert args.backend == "spmd" and args.device == "cuda"
+    assert args.backend == "fast" and args.device == "cuda"
+    assert jcli.build_parser().parse_args(["run", "--dset", "d", "--aln", "a.fa"]).backend == "fast"
 
 
 def test_help_runs():
@@ -82,10 +87,34 @@ def test_standalone_commands_byte_identical(run_dset, tmp_path, cmd):
 
 
 @pytest.mark.parametrize("flags", [
+    ["--backend", "fast"], ["--pipeline-depth", "2"],
+    # 16 genomes x one 1,000-SNP block: 16,000 bytes over 60% of the budget
+    ["--device-budget-bytes", "20000"],
+], ids=["backend_fast", "pipeline_depth", "device_budget_bytes"])
+def test_fast_flags_match_jax_cli(run_dset, tmp_path, flags):
+    """The fast backend's options run through the port's CLI and give the
+    JAX CLI's links with the same options (within the fringe of
+    tests/test_torch_pipeline.py; a budget that streams the slabs changes
+    the LR row order only)."""
+    from tests.test_torch_pipeline import assert_lr_within_fringe, assert_sr_within_fringe
+
+    base = ["--aln", str(run_dset / "aln.fa.gz"), "--gbk", str(run_dset / "ref.gbk"),
+            "--max-blk-sz", "1000", *flags]
+    assert jcli.main(["run", "--dset", str(tmp_path / "jax"), *base]) == 0
+    assert tcli.main(["run", "--dset", str(tmp_path / "torch"), *base,
+                      "--device", "cpu"]) == 0
+    assert_sr_within_fringe(str(tmp_path / "jax"), str(tmp_path / "torch"))
+    assert_lr_within_fringe(str(tmp_path / "jax"), str(tmp_path / "torch"))
+    import json
+
+    fast = json.load(open(tmp_path / "torch" / "timings.json"))["blk5_phases"]["fast"]
+    assert fast["depth"] == (2 if "--pipeline-depth" in flags else 4)
+    assert fast["streaming"] == ("--device-budget-bytes" in flags)
+
+
+@pytest.mark.parametrize("flags", [
     ["--coordinator", "localhost:1234"], ["--num-processes", "2"],
-    ["--device-budget-bytes", "1000000"], ["--pipeline-depth", "2"],
-    ["--backend", "fast"], ["--n-devices", "2"],
-    ["--sr-reduce", "part", "--n-devices", "2"],
+    ["--n-devices", "2"], ["--sr-reduce", "part", "--n-devices", "2"],
 ])
 def test_unported_flags_raise(tmp_path, flags):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -153,8 +153,7 @@ def test_timings_and_unported_options(runs, tmp_path):
     assert t["blk5_phases"]["spmd"]["sr_reduce"] == "device"
     # the options still unported raise, with the default config
     # (SnpEff_Annotate=True) and without it
-    for bad in (dict(backend="fast"), dict(sr_reduce="part", n_devices=2),
-                dict(n_devices=2)):
+    for bad in (dict(sr_reduce="part", n_devices=2), dict(n_devices=2)):
         for annotate in (True, False):
             with pytest.raises(NotImplementedError, match="ROADMAP"):
                 ldweaver_tpu_torch.ldweaver(
