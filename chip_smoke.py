@@ -40,8 +40,9 @@ Phases (any failure exits nonzero before the final line):
                run whose tile dispatches raise on any host sync
                (torch.cuda.set_sync_debug_mode("error")), each
                byte-identical to the fast run (depth 4);
-     resume  - on the small input, backend="fast" and backend="spmd"
-               with sr_reduce="device", each crashed after its first
+     resume  - on the small input, backend="fast" with sr_reduce="host"
+               and backend="spmd" with sr_reduce="device" (one tile
+               sweep, both SR modes), each crashed after its first
                checkpoint (the checkpoint save patched to raise) and run
                again in the same dset: the rerun replays >= 1 tile from
                dset/mi_chkpt and writes byte-identical TSVs;
@@ -60,15 +61,17 @@ Phases (any failure exits nonzero before the final line):
                the SR reduction on the card, K1 launched for every tile,
                the SR pair count equal to an independent count from the
                kept positions, the per-block times, the BLK5 split and
-               the peak device memory;
+               BLK5's own peak device memory;
      headline fast - the same input through `ldweaver(..., backend="fast",
                device_budget_bytes=50_331_648)` (48 MiB: the rank codes
                stream through an 11-slot slab pool in panels of 9),
-               BLK1-BLK7: sr_links.tsv byte-identical to the headline
-               spmd run's, its lr_links.tsv lines equal as a set, the
-               run streamed, K1 launched for every tile; blk5_phases
-               "fast" (uploads, hits, dispatch / finish / checkpoint
-               seconds), the per-block times and the peak device memory;
+               BLK1-BLK7: the SR table reduced on the card,
+               sr_links.tsv byte-identical to the headline spmd run's,
+               its lr_links.tsv lines equal as a set, the run streamed
+               with a pool within 60% of the budget, K1 launched for
+               every tile; blk5_phases "fast" (uploads, hits, dispatch /
+               finish / checkpoint seconds), the per-block times and
+               BLK5's own peak device memory beside the budget;
   6. lr      - the LR-only sweep `fast_lr_topk`: card against CPU at 64
                genomes x 16,384 SNPs, then the bench.py sweep leg (the
                `synth` recipe at 1024 genomes x 131,072 SNPs, block 4096,
@@ -797,10 +800,11 @@ class SimulatedCrash(Exception):
 
 
 def resume_phase():
-    """backend="fast" and "spmd" (device SR mode) on the small input on
-    the card: a run that dies after its first checkpoint, rerun in the
-    same dset, must replay checkpoints and write the uninterrupted run's
-    bytes."""
+    """backend="fast" (host SR mode: a done tile replays from disk) and
+    "spmd" (device SR mode: a done tile replays its LR rows and is
+    dispatched again) on the small input on the card: a run that dies
+    after its first checkpoint, rerun in the same dset, must replay
+    checkpoints and write the uninterrupted run's bytes."""
     import ldweaver_tpu_torch
     from ldweaver_tpu_torch.core import sweep as tsweep
 
@@ -812,7 +816,8 @@ def resume_phase():
               lr_retain_links=20000)
     orig = tsweep._BlockCheckpoint.save
     res = {}
-    for backend, extra in (("fast", {}), ("spmd", dict(sr_reduce="device"))):
+    for backend, extra in (("fast", dict(sr_reduce="host")),
+                           ("spmd", dict(sr_reduce="device"))):
         ref = os.path.join(d, f"{backend}_ref")
         ldweaver_tpu_torch.ldweaver(dset=ref, backend=backend, **extra, **kw)
         saved = {"n": 0}
@@ -842,8 +847,8 @@ def resume_phase():
         if stats["ckpt_hits"] < 1 or not same:
             raise RuntimeError(f"resume {backend}: {res[backend]}")
     log(f"resume on the card (crash after the first checkpoint, rerun): {json.dumps(res)}")
-    if res["spmd"]["sr_reduce"] != "device":
-        raise RuntimeError("resume spmd: the SR table did not reduce on the card")
+    if res["spmd"]["sr_reduce"] != "device" or res["fast"]["sr_reduce"] != "host":
+        raise RuntimeError(f"resume: not in the SR modes asked for: {res}")
     return res
 
 
@@ -896,18 +901,20 @@ def slice_phase():
     return launches, by_bucket
 
 
-def blk5_split(timings):
-    """BLK5's wall and its parts (timings.json, seconds): the sweep
-    (extraction on the card incl. copies, host emission, the on-device SR
-    reduction's passes and host steps), then the background model's
-    finish, ARACNE and the SR table's write."""
+def blk5_split(timings, backend="spmd"):
+    """BLK5's wall and its parts (timings.json, seconds): the tile sweep
+    (dispatch, finish = waits on the card + LR emission, SR emission or
+    hand-over, checkpoints; slab uploads, BLK5's own peak device memory),
+    the on-device SR reduction's passes and host steps, then the
+    background model's finish, ARACNE and the SR table's write."""
     blk5 = timings["blk5_phases"]
-    spmd = blk5["spmd"]
-    keys = ("sr_reduce", "tiles", "retries", "fallbacks", "sr_pairs", "extract_s",
-            "emit_s", "bg_stats_s", "bg_fit_s", "bg_cand_s", "cand_count", "cand_mb",
-            "bg_order_s")
+    sweep = blk5[backend]
+    keys = ("sr_reduce", "tiles", "retries", "fallbacks", "sr_pairs", "depth",
+            "streaming", "pool_bytes", "uploads", "hits", "dispatch_s", "finish_s",
+            "sr_emit_s", "ckpt_s", "peak_tiles_bytes", "peak_bytes", "bg_stats_s",
+            "bg_fit_s", "bg_cand_s", "cand_count", "cand_mb", "bg_order_s")
     return dict(blk5_mi_computation=timings["blk5_mi_computation"],
-                **{k: spmd.get(k) for k in keys},
+                **{k: sweep.get(k) for k in keys},
                 **{k: blk5.get(k) for k in ("sweep_s", "background_s", "aracne_s",
                                             "sr_write_s")})
 
@@ -941,7 +948,6 @@ def headline_phase(sr_reduce="auto"):
     log(f"headline input generated in {time.time() - t0:.1f} s")
     dset = os.path.join(d, "ldw_out")
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
     rank_mi.K1.reset()
     t0 = time.time()
     ldweaver_tpu_torch.ldweaver(  # save_additional_outputs: the kept positions
@@ -953,7 +959,6 @@ def headline_phase(sr_reduce="auto"):
     wall = time.time() - t0
     launches = rank_mi.K1.launches
     by_bucket = dict(rank_mi.K1.by_bucket)
-    peak = torch.cuda.max_memory_allocated()
     timings = json.load(open(os.path.join(dset, "timings.json")))
     spmd = timings["blk5_phases"]["spmd"]
     sr, lr = read_links(dset)
@@ -965,17 +970,18 @@ def headline_phase(sr_reduce="auto"):
     res = dict(wall_s=wall, nsnp=int(kept.size), tiles=spmd["tiles"],
                k1_launches=launches, k1_by_bucket={str(k): v for k, v in by_bucket.items()},
                sr_pairs=spmd["sr_pairs"], sr_pairs_from_positions=host_sr,
-               sr_rows=len(sr), lr_rows=len(lr), peak_device_bytes=peak,
-               blocks=blocks, blk5=blk5_split(timings))
+               sr_rows=len(sr), lr_rows=len(lr), blocks=blocks,
+               blk5=blk5_split(timings))
     log(f"headline (616 x 131,072 SNPs, BLK1-BLK7, sr_reduce={sr_reduce!r}):"
         f" {json.dumps(res)}")
     log(f"headline: wall {wall:.1f} s, BLK5 {timings['blk5_mi_computation']:.2f} s"
-        f" (extract {spmd['extract_s']} s, emit {spmd['emit_s']} s, SR stats"
-        f" {spmd.get('bg_stats_s')} s, fit {spmd.get('bg_fit_s')} s, candidates"
-        f" {spmd.get('bg_cand_s')} s for {spmd.get('cand_count')}, order"
-        f" {spmd.get('bg_order_s')} s; background"
-        f" {timings['blk5_phases'].get('background_s')} s), peak device memory"
-        f" {peak / 2**30:.2f} GiB")
+        f" (dispatch {spmd['dispatch_s']} s, finish {spmd['finish_s']} s, SR"
+        f" stats {spmd.get('bg_stats_s')} s, fit {spmd.get('bg_fit_s')} s,"
+        f" candidates {spmd.get('bg_cand_s')} s for {spmd.get('cand_count')},"
+        f" order {spmd.get('bg_order_s')} s; background"
+        f" {timings['blk5_phases'].get('background_s')} s), BLK5 peak device"
+        f" memory {spmd['peak_bytes']} bytes ({spmd['peak_tiles_bytes']} after"
+        f" the tiles; pool {spmd['pool_bytes']} bytes)")
     if spmd["sr_reduce"] != ("host" if sr_reduce == "host" else "device"):
         raise RuntimeError(f"headline: the SR table reduced on the {spmd['sr_reduce']}")
     if spmd["tiles"] != 528 or launches < 528:
@@ -992,9 +998,9 @@ HEADLINE_FAST_BUDGET = 50_331_648  # 48 MiB: 11 slabs of 616 x 4096, panels of 9
 
 def headline_fast_phase(inputs, depth=4):
     """backend="fast" on the headline input, the rank codes streamed
-    through a 48 MiB slab budget, `depth` tiles dispatched ahead,
-    BLK1-BLK7, against the headline spmd run (`inputs` from
-    headline_phase)."""
+    through a 48 MiB slab budget, `depth` tiles dispatched ahead, the SR
+    table reduced on the card, BLK1-BLK7, against the headline spmd run
+    (`inputs` from headline_phase)."""
     import torch
 
     import ldweaver_tpu_torch
@@ -1002,7 +1008,6 @@ def headline_fast_phase(inputs, depth=4):
 
     dset = os.path.join(WORK, "headline", f"ldw_fast_depth{depth}")
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
     rank_mi.K1.reset()
     t0 = time.time()
     ldweaver_tpu_torch.ldweaver(
@@ -1015,7 +1020,6 @@ def headline_fast_phase(inputs, depth=4):
     wall = time.time() - t0
     launches = rank_mi.K1.launches
     by_bucket = dict(rank_mi.K1.by_bucket)
-    peak = torch.cuda.max_memory_allocated()
     timings = json.load(open(os.path.join(dset, "timings.json")))
     blk5 = timings["blk5_phases"]
     fast = blk5["fast"]
@@ -1024,21 +1028,28 @@ def headline_fast_phase(inputs, depth=4):
     lr_s = tsv_bytes(inputs["dset"], "lr_links.tsv").splitlines()
     lr_same_set = sorted(lr_f) == sorted(lr_s)
     blocks = {k: v for k, v in timings.items() if k.startswith("blk") and k != "blk5_phases"}
-    res = dict(wall_s=wall, fast=fast, k1_launches=launches,
+    res = dict(wall_s=wall, k1_launches=launches,
                k1_by_bucket={str(k): v for k, v in by_bucket.items()},
                sr_tsv_byte_identical_to_spmd=sr_same, lr_rows=len(lr_f),
                lr_set_equal_to_spmd=lr_same_set, lr_row_order_equal=lr_f == lr_s,
-               peak_device_bytes=peak, blocks=blocks,
-               blk5={k: blk5.get(k) for k in ("sweep_s", "background_s", "aracne_s",
-                                              "sr_write_s")})
+               blocks=blocks, blk5=blk5_split(timings, "fast"),
+               max_slabs=fast["max_slabs"], panel=fast["panel"])
     log(f"headline fast (616 x 131,072 SNPs, budget {HEADLINE_FAST_BUDGET} bytes,"
         f" depth {depth}, BLK1-BLK7): {json.dumps(res)}")
     log(f"headline fast: wall {wall:.1f} s, BLK5 {timings['blk5_mi_computation']:.2f} s"
         f" (dispatch {fast['dispatch_s']} s, finish {fast['finish_s']} s, SR"
-        f" emission {fast['sr_emit_s']} s, checkpoints {fast['ckpt_s']} s;"
+        f" hand-over {fast['sr_emit_s']} s, checkpoints {fast['ckpt_s']} s, SR"
+        f" stats {fast.get('bg_stats_s')} s, fit {fast.get('bg_fit_s')} s;"
         f" background {blk5.get('background_s')} s), slab uploads"
-        f" {fast['uploads']}, hits {fast['hits']}, peak device memory"
-        f" {peak / 2**30:.2f} GiB")
+        f" {fast['uploads']}, hits {fast['hits']}; BLK5 peak device memory"
+        f" {fast['peak_bytes']} bytes ({fast['peak_tiles_bytes']} after the"
+        f" tiles) against a slab budget of {HEADLINE_FAST_BUDGET} bytes, of which"
+        f" the pool holds {fast['pool_bytes']}")
+    if fast["sr_reduce"] != "device":
+        raise RuntimeError(f"headline fast: the SR table reduced on the {fast['sr_reduce']}")
+    if fast["pool_bytes"] > 0.6 * HEADLINE_FAST_BUDGET:
+        raise RuntimeError(f"headline fast: the slab pool ({fast['pool_bytes']} bytes)"
+                           f" exceeds 60% of the budget")
     if not (sr_same and lr_same_set):
         raise RuntimeError("headline fast: the link tables differ from the spmd run's")
     if not (fast["streaming"] and fast["max_slabs"] == 11 and fast["panel"] == 9):
@@ -1047,6 +1058,23 @@ def headline_fast_phase(inputs, depth=4):
         raise RuntimeError(f"headline fast: K1 launched {launches} times for"
                            f" {fast['tiles']} tiles (528 expected)")
     return by_bucket
+
+
+def depth_ab(depths=(4, 1, 1, 4)):
+    """Not part of the smoke run: the headline spmd run, then the
+    headline fast run once for each of `depths` (a fresh dset each, so
+    nothing resumes), to read what `pipeline_depth` does to BLK5.  Run
+    as `python3 -c "import chip_smoke as cs; cs.depth_ab()"`."""
+    probe()
+    if os.path.exists(WORK):
+        shutil.rmtree(WORK)
+    os.makedirs(WORK)
+    build()
+    _, inputs = timed("headline", headline_phase)
+    for depth in depths:
+        shutil.rmtree(os.path.join(WORK, "headline", f"ldw_fast_depth{depth}"),
+                      ignore_errors=True)
+        timed(f"headline fast depth {depth}", headline_fast_phase, inputs, depth)
 
 
 def cli_phase():

@@ -2,14 +2,13 @@
 R/computePairwiseMI.R:46-145 + per-block `perform_MI_computation_ACGTN`,
 R/computePairwiseMI.R:167-386).
 
-backend "spmd": the r-stratified tile sweep runs on one device
-(parallel/spmd_sweep.py), and with `sr_reduce` "auto" (when the SR table
-fits) or "device" the SR background model reduces there too
-(parallel/sr_reduce.py).  backend "fast": the same tiles through
-`FastTileRunner`, dispatched `pipeline_depth` ahead of the host emission
-and fed from a slab cache whose pool a device budget bounds
-(parallel/slabs.py); the SR pairs are emitted on the host, and the TSVs
-are byte-identical to "spmd".  The compat backends "jax", "pallas" and
+backends "spmd" and "fast" are one sweep (`parallel/spmd_sweep.blk5_sweep`):
+the r-stratified tiles run on one device through `FastTileRunner`,
+dispatched `pipeline_depth` ahead of the host emission and fed from a
+slab cache whose pool a device budget bounds (parallel/slabs.py); with
+`sr_reduce` "auto" (when the SR table fits) or "device" the SR background
+model reduces on the device too (parallel/sr_reduce.py).  The two names
+differ only in the key of their stats.  The compat backends "jax", "pallas" and
 "numpy" walk the reference's contiguous `make_blocks` tiling with one MI
 tile per block pair (`sweep_block_pair`): "numpy" the float64 oracle on
 the host, "jax" the f32 PyTorch tile (`core/mi.mi_tile_jax`), "pallas"
@@ -17,10 +16,10 @@ kernel K3 (`ops/compat_mi.mi_tile_pallas`); link extraction is host code.
 The background model, ARACNE and the TSV writers run on the host.
 
 With `checkpoint_dir` every backend resumes an interrupted sweep: each
-finished block pair (compat, "fast") or tile ("spmd", under
+finished block pair (compat) or tile ("spmd" and "fast", under
 `spmd_tiles/`) is written atomically as one uncompressed npz, and a
-manifest of the configuration and a checksum of the data invalidates
-stale ones (`_BlockCheckpoint`).
+manifest of the configuration, the device type and a checksum of the
+data invalidates stale ones (`_BlockCheckpoint`).
 """
 
 from __future__ import annotations
@@ -31,7 +30,6 @@ import os
 import time
 import zipfile
 import zlib
-from collections import deque
 from typing import Callable, List, Optional, Tuple
 
 import numpy as np
@@ -54,20 +52,15 @@ from ldweaver_tpu_torch.core.mi import (
 from ldweaver_tpu_torch.core.snp_tensor import SnpData
 from ldweaver_tpu_torch.io.writers import append_tsv_rows, format_float
 from ldweaver_tpu_torch.ops.compat_mi import mi_tile_pallas
-from ldweaver_tpu_torch.parallel.fast_sweep import stratify, tile_masks, two_stage_topk
-from ldweaver_tpu_torch.parallel.slabs import (
-    SlabCache,
-    auto_budget,
-    panel_pair_order,
-    plan_budget,
-)
+from ldweaver_tpu_torch.parallel.fast_sweep import tile_masks, two_stage_topk
+from ldweaver_tpu_torch.parallel.slabs import SlabCache
 from ldweaver_tpu_torch.parallel.spmd_sweep import (
     _circular_window_counts,
     blk5_sweep,
     device_inputs,
     dispatch_extract,
     emit_sr_pairs,
-    emit_tile_extract,
+    emit_tile_lr,
     extract_dims,
     fallback_full_tile,
     fast_block_size,
@@ -271,9 +264,10 @@ def _lr_quantile(mi: torch.Tensor, lr_ok: torch.Tensor, prob: float):
 
 
 class FastTileRunner:
-    """Tile executor of the fast backend: a slab cache on the device and
-    split `dispatch` / `finish`, so the pipeline queues tiles ahead and
-    the card computes while the host emits links.  `dispatch` waits for
+    """Tile executor of BLK5 (backends "spmd" and "fast",
+    parallel/spmd_sweep.blk5_sweep): a slab cache on the device and split
+    `dispatch` / `finish`, so the sweep queues tiles ahead and the card
+    computes while the host emits links.  `dispatch` waits for
     nothing on the card: it reads the tile's two slabs from the cache
     pool, queues the tile (kernel K1) and the copies of its results into
     pinned host memory, and records an event; `finish` waits on the event
@@ -282,8 +276,9 @@ class FastTileRunner:
     Transfer modes per tile:
       'extract' (the 'auto' default) - the spmd sweep's on-device link
         extraction (parallel/spmd_sweep.dispatch_extract): the SR pairs
-        compacted into the tile's exact host-known count, a certified
-        two-stage LR top-K; the same bytes as backend "spmd";
+        compacted into the tile's exact host-known count (kept on the
+        device with `keep_sr`, for the on-device SR reduction), a
+        certified two-stage LR top-K;
       'summary' - the tile's f64 type-7 LR threshold, an LR top-K with 16
         candidates a row, and the submatrix of the rows and columns that
         can hold SR pairs;
@@ -309,6 +304,9 @@ class FastTileRunner:
         transfer: str = "auto",
         topk: int = 8192,
         max_slabs: Optional[int] = None,
+        keep_sr: bool = False,
+        topk_cap: int = 1 << 18,
+        sr_counts: Optional[np.ndarray] = None,
         device="cuda",
     ):
         self.ranked = ranked
@@ -319,6 +317,7 @@ class FastTileRunner:
         self.sr_links = sr_links
         self.transfer = transfer
         self.topk = topk
+        self.keep_sr = keep_sr
         self.lr_prob = (
             None
             if lr_links_approx is None
@@ -327,9 +326,13 @@ class FastTileRunner:
         self.cache = SlabCache(ranked.rank_codes, ranked.block, max_slabs,
                                device=device)
         self.dev = device_inputs(ranked, valid, np.asarray(hdw, np.float64),
-                                 neff, device, codes=self.cache.pool)
-        self.K, self.k_row = extract_dims(ranked.block, self.lr_prob)
-        self.sr_counts = sr_pair_counts(ranked, valid, g, sr_dist)
+                                 neff, device,
+                                 paint_sorted if keep_sr else None,
+                                 codes=self.cache.pool)
+        self.K, self.k_row = extract_dims(ranked.block, self.lr_prob,
+                                          k_max=topk_cap)
+        self.sr_counts = (sr_pair_counts(ranked, valid, g, sr_dist)
+                          if sr_counts is None else sr_counts)
         self.fallbacks = 0
         self.retries = 0
         self._summary_ok = 0
@@ -371,6 +374,10 @@ class FastTileRunner:
 
     # -- dispatch: queue device work, do NOT wait for it ----------------
     def dispatch(self, bi: int, bj: int) -> dict:
+        with annotate("fast_dispatch"):
+            return self._dispatch(bi, bj)
+
+    def _dispatch(self, bi: int, bj: int) -> dict:
         cols = self._cols(bi, bj)
         mode = self._mode()
         Rf, Rt, pure = self._bucket(bi, bj)
@@ -380,8 +387,8 @@ class FastTileRunner:
                 self.dev, bi, bj, block=B, sr_dist=int(self.sr_dist),
                 g=int(self.g), K=self.K, k_row=self.k_row,
                 prob=1.0 if self.lr_prob is None else self.lr_prob,
-                Rf=Rf, Rt=Rt, pure=pure, n_sr=int(self.sr_counts[bi, bj]),
-                cols=cols,
+                Rf=Rf, Rt=Rt, pure=pure, keep_sr=self.keep_sr,
+                n_sr=int(self.sr_counts[bi, bj]), cols=cols,
             )
             return dict(kind="extract", bi=bi, bj=bj, p=p)
         mi = tile_mi(self.dev, bi, bj, B, Rf, Rt, pure, cols)
@@ -433,18 +440,32 @@ class FastTileRunner:
         )
 
     # -- finish: wait + host emission ------------------------------------
-    def finish(self, pending: dict, lr_rows_sink: Callable):
-        """Emit a dispatched tile's LR links; returns its SR pairs (i32
-        row-major flat index, f32 MI) for `emit_sr`, which the caller
-        runs in the canonical tile order (the background model's sums
-        follow the SR table's order).  SR is single-sourced from the
-        primary result: its compaction is exact whatever the LR side."""
+    def finish(self, pending: dict, lr_rows_sink: Optional[Callable]):
+        """Emit a dispatched tile's LR links (none with lr_rows_sink=None:
+        a tile replayed from a checkpoint whose SR pairs are rebuilt);
+        returns its SR pairs (i32 row-major flat index, f32 MI; device
+        tensors with keep_sr) for `emit_sr` or the on-device SR reduction,
+        which the caller feeds in the canonical tile order (the background
+        model's sums follow the SR table's order).  SR is single-sourced
+        from the primary result: its compaction is exact whatever the LR
+        side."""
+        with annotate("fast_finish"):
+            return self._finish(pending, lr_rows_sink)
+
+    def _finish(self, pending: dict, lr_rows_sink: Optional[Callable]):
         bi, bj = pending["bi"], pending["bj"]
-        kw = self._emit_kw(bi, bj, lr_rows_sink)
+        skip_lr = lr_rows_sink is None
+        kw = self._emit_kw(bi, bj, lr_rows_sink or (lambda *cols: None))
         if pending["kind"] == "extract":
             res = finish_extract(pending["p"])
+            if res.n_sr != kw["expected_sr"]:
+                raise RuntimeError(
+                    f"device SR count {res.n_sr} != host count {kw['expected_sr']}"
+                )
             record = (res.sr_idx[: res.n_sr], res.sr_vals[: res.n_sr])
-            if emit_tile_extract(res, K=self.K, parts="lr", **kw):
+            if skip_lr:
+                return record
+            if emit_tile_lr(res, K=self.K, **kw):
                 self._summary_ok += 1
                 return record
             # the LR certificate failed: redo only the LR side
@@ -465,7 +486,7 @@ class FastTileRunner:
             return full_tile_emit(
                 pending["mi"].numpy(), self.ranked, self.valid,
                 self.paint_sorted, bi, bj, self.g, self.sr_dist, self.lr_prob,
-                self.sr_links, lr_rows_sink, emit_sr=False,
+                kw["lr_rows_sink"],
             )
         record = self._finish_summary(pending, kw)
         if record is not None:
@@ -475,8 +496,8 @@ class FastTileRunner:
         self._note_fallback()
         return fallback_full_tile(
             self.dev, self.ranked, self.valid, self.paint_sorted, bi, bj,
-            self.g, self.sr_dist, self.lr_prob, self.sr_links, lr_rows_sink,
-            emit_sr=False, cols=self._cols(bi, bj),
+            self.g, self.sr_dist, self.lr_prob, kw["lr_rows_sink"],
+            cols=self._cols(bi, bj),
         )
 
     def _note_fallback(self) -> None:
@@ -665,14 +686,15 @@ def perform_mi_computation(
     Returns the reduced short-range link table (SrLinks with ARACNE column),
     like the reference returns sr_links_red (R/computePairwiseMI.R:143).
 
-    device_budget_bytes bounds the fast backend's slab pool (by default
-    the card's memory; under it the slabs stream, parallel/slabs.py);
-    pipeline_depth is how many fast tiles are dispatched ahead of the
-    host emission.  checkpoint_dir resumes an interrupted sweep (module
-    docstring).  phase_timings, if given a dict, is filled with the
-    wall-clock split (sweep / background fit / aracne / sr write, plus
-    the sweep's tile stats under "spmd" or "fast").  rxy_compat selects
-    the reference's RXY alias on the compat backends."""
+    device_budget_bytes bounds the slab pool of backends "spmd" and
+    "fast" (by default the card's memory; under it the slabs stream,
+    parallel/slabs.py); pipeline_depth is how many of their tiles are
+    dispatched ahead of the host emission.  checkpoint_dir resumes an
+    interrupted sweep (module docstring).  phase_timings, if given a
+    dict, is filled with the wall-clock split (sweep / background fit /
+    aracne / sr write, plus the sweep's tile stats under "spmd" or
+    "fast").  rxy_compat selects the reference's RXY alias on the compat
+    backends."""
     check_supported(backend=backend, n_devices=n_devices)
     device = resolve_device(device)
     t000 = time.time()
@@ -732,14 +754,16 @@ def perform_mi_computation(
                 )
             )
 
+    tiled = backend in ("spmd", "fast")
     chkpt = None
-    if checkpoint_dir:
-        # the JAX package's key (core/sweep.py:903-913), the fast tile
-        # size, the options that change the links, and the data's crc
+    if checkpoint_dir and not tiled:
+        # the JAX package's key (core/sweep.py:903-913), the options that
+        # change the links, the device type (the compat tiles' numerics
+        # differ between the card and the host) and the data's crc
         chkpt = _BlockCheckpoint(checkpoint_dir, config_key=(
             snp_data.nsnp, snp_data.nseq, sr_dist, float(lr_retain_links),
-            round_blk_sz(max_blk_sz), backend, nclust, fast_blk,
-            perform_sr_analysis_only, lr_links_approx, rxy_compat,
+            round_blk_sz(max_blk_sz), backend, nclust,
+            perform_sr_analysis_only, lr_links_approx, rxy_compat, device.type,
             data_crc(snp_data.codes, snp_data.pos, np.asarray(hdw, np.float64),
                      cds_var.paint),
         ))
@@ -774,7 +798,7 @@ def perform_mi_computation(
 
     dev_sr = None
     with maybe_trace("blk5_sweep"):
-        if backend == "spmd":
+        if tiled:
             stats, dev_sr = blk5_sweep(
                 snp_data,
                 np.asarray(hdw, dtype=np.float64),
@@ -792,18 +816,11 @@ def perform_mi_computation(
                 sr_reduce=sr_reduce,
                 checkpoint_dir=(os.path.join(checkpoint_dir, "spmd_tiles")
                                 if checkpoint_dir else None),
+                device_budget_bytes=device_budget_bytes,
+                pipeline_depth=pipeline_depth,
             )
             if phase_timings is not None:
-                phase_timings["spmd"] = stats
-        elif backend == "fast":
-            stats = _fast_sweep(
-                snp_data, hdw, cds_var.paint, neff, sr_dist, lr_retain_links,
-                None if perform_sr_analysis_only else lr_links_approx,
-                sr_links, lr_sink, fast_blk, device, device_budget_bytes,
-                pipeline_depth, chkpt, verbose,
-            )
-            if phase_timings is not None:
-                phase_timings["fast"] = stats
+                phase_timings[backend] = stats
         else:
             blocks = make_blocks(snp_data.nsnp, round_blk_sz(max_blk_sz))
             for bi in range(blocks.shape[0]):
@@ -907,127 +924,3 @@ def perform_mi_computation(
         print(f"All done in {(time.time() - t000) / 60:.2f} mins")
     return sr_links_red
 
-
-def _fast_sweep(snp_data, hdw, paint, neff, sr_dist, lr_retain_links,
-                lr_links_approx, sr_links, lr_sink, block, device,
-                device_budget_bytes, pipeline_depth, chkpt, verbose) -> dict:
-    """BLK5 of backend "fast": the tiles in panel order through a
-    FastTileRunner, `pipeline_depth` dispatched ahead of the host
-    emission, each finished tile checkpointed (its SR pairs as i32 flat
-    index + f32 MI, its LR rows) and a done tile replayed in its place in
-    the queue, so the rows come out in the same order.  The SR pairs go
-    into `sr_links` in the canonical tile order.  Returns the stats of
-    blk5_phases["fast"]."""
-    ranked = stratify(snp_data.codes, snp_data.acgtn_table, snp_data.pos,
-                      snp_data.r, block)
-    paint_sorted = np.concatenate(
-        [paint[ranked.perm],
-         np.zeros(ranked.pos.size - snp_data.nsnp, dtype=np.int64)]
-    )
-    valid = np.arange(ranked.pos.size) < snp_data.nsnp
-    nb = ranked.rank_codes.shape[1] // ranked.block
-    if device_budget_bytes is None:
-        device_budget_bytes = auto_budget(device)  # the card's memory
-    streaming, max_slabs, panel = plan_budget(
-        snp_data.nseq, ranked.block, nb, device_budget_bytes
-    )
-    runner = FastTileRunner(
-        ranked, paint_sorted, valid, np.asarray(hdw, np.float64), neff,
-        snp_data.g, sr_dist, lr_retain_links, lr_links_approx, sr_links,
-        max_slabs=max_slabs, device=device,
-    )
-    depth = max(1, int(pipeline_depth))
-
-    def depth_limit() -> int:
-        """In-flight tile cap.  Extract-mode tiles hold O(P_sr + K) bytes,
-        but full-transfer tiles (post-demotion) each hold a B x B f32
-        output: under a streaming budget, clamp to what ~20% of the
-        budget holds (checked per tile: demotion can flip the mode)."""
-        if not streaming or runner._mode() != "full":
-            return depth
-        tile_bytes = ranked.block * ranked.block * 4
-        return min(depth, max(1, int(device_budget_bytes * 0.2 / tile_bytes)))
-
-    stats = dict(tiles=0, retries=0, fallbacks=0, demoted=False, uploads=0,
-                 hits=0, dispatch_s=0.0, finish_s=0.0, sr_emit_s=0.0, ckpt_s=0.0,
-                 ckpt_hits=0,
-                 streaming=streaming, max_slabs=max_slabs, panel=panel,
-                 depth=depth)
-    npairs_total = nb * (nb + 1) // 2
-    queue: deque = deque()
-    # SR pairs are emitted in the canonical tile order (that of a resident
-    # run and of backend "spmd"), whatever order the panels visit
-    canonical = list(panel_pair_order(nb, nb))
-    sr_ready: dict = {}
-    n_emitted = 0
-
-    def finish_one():
-        nonlocal n_emitted
-        key, bi, bj, pending, hit, t0 = queue.popleft()
-        if hit is not None:  # a checkpointed tile, replayed in its place
-            t1 = time.perf_counter()
-            sr = (hit["sr_idx"], hit["sr_vals"])
-            replay_lr_rows(hit, lr_sink)
-            stats["ckpt_s"] += time.perf_counter() - t1
-        else:
-            rows: list = []  # the tile's LR rows, for its checkpoint
-
-            def sink(*cols):
-                rows.append(tuple(np.asarray(c) for c in cols))
-                lr_sink(*cols)
-
-            t1 = time.perf_counter()
-            with annotate("fast_finish"):
-                sr = runner.finish(pending, sink)
-            t2 = time.perf_counter()
-            stats["finish_s"] += t2 - t1
-            if chkpt is not None:
-                chkpt.save(key, tile_payload(sr, rows))
-                stats["ckpt_s"] += time.perf_counter() - t2
-        sr_ready[bi, bj] = sr
-        t1 = time.perf_counter()
-        while n_emitted < npairs_total and canonical[n_emitted] in sr_ready:
-            runner.emit_sr(*canonical[n_emitted],
-                           *sr_ready.pop(canonical[n_emitted]))
-            n_emitted += 1
-        stats["sr_emit_s"] += time.perf_counter() - t1
-        stats["tiles"] += 1
-        if verbose:
-            print(f"Block {stats['tiles']} of {npairs_total} ... "
-                  f"done in {time.time() - t0:.2f} s")
-
-    cur_panel = -1
-    for bi, bj in panel_pair_order(nb, panel):
-        p = bi // panel
-        if p != cur_panel:
-            cur_panel = p
-            runner.pin_panel(range(p * panel, min((p + 1) * panel, nb)))
-        key = f"fast_{bi}_{bj}"
-        t0 = time.time()
-        t1 = time.perf_counter()
-        hit = chkpt.load(key) if chkpt is not None else None
-        if hit is not None:
-            stats["ckpt_hits"] += 1
-            stats["ckpt_s"] += time.perf_counter() - t1
-            queue.append((key, bi, bj, None, hit, t0))
-        else:
-            t1 = time.perf_counter()
-            with annotate("fast_dispatch"):
-                pending = runner.dispatch(bi, bj)
-            stats["dispatch_s"] += time.perf_counter() - t1
-            queue.append((key, bi, bj, pending, None, t0))
-        while len(queue) >= depth_limit():
-            finish_one()
-    while queue:
-        finish_one()
-    runner.unpin_all()
-    stats.update(retries=runner.retries, fallbacks=runner.fallbacks,
-                 demoted=runner._demoted, uploads=runner.cache.uploads,
-                 hits=runner.cache.hits)
-    for k in ("dispatch_s", "finish_s", "sr_emit_s", "ckpt_s"):
-        stats[k] = round(stats[k], 3)
-    if verbose:
-        print(f"Slab cache: {stats['uploads']} uploads, {stats['hits']} hits"
-              f" over {npairs_total} tiles ({'streamed' if streaming else 'resident'},"
-              f" {max_slabs or nb} slots, panel {panel})")
-    return stats

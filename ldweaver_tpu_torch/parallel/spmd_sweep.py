@@ -4,7 +4,7 @@ sweep (parallel/spmd_sweep.py there).
 Per tile of the r-stratified block-pair grid, `dispatch_extract` queues
 the MI tile (kernel K1) and its extraction on the device without waiting
 for it, and `finish_extract` waits for the results (`extract_tile` does
-both; the fast backend's runner keeps tiles queued in between):
+both; `core.sweep.FastTileRunner` keeps tiles queued in between):
   * **SR links**: every short-range pair, compacted row-major (a cumsum
     and scatter into the exact host count from the positions, as the
     reference does; the device's own count is checked against it);
@@ -14,16 +14,18 @@ both; the fast backend's runner keeps tiles queued in between):
     type-7 retention threshold in f64 from the two order statistics around
     the quantile (`lr_threshold_from_topk`) and keeps candidates >= q.
 
-`blk5_sweep` uploads the rank codes once, visits the tiles in
-`panel_pair_order(nb, nb)` (the reference's emission order), and recovers
-tiles whose certificate fails with a boosted-capacity retry and, past
-that, an exact full-tile extraction.  With the on-device SR reduction
-(`sr_reduce` "auto" when the table fits, or "device") every tile's SR
-pairs stay on the card and `parallel/sr_reduce.run_device_reduction`
-reduces them after the loop; otherwise they are copied to the host and
-emitted there.  With a checkpoint directory the sweep resumes tile by
-tile.  The host helpers (SR counts, top-K sizing, emission) are copies of
-the JAX package's.
+`blk5_sweep` is BLK5's one tile loop, for backends "spmd" and "fast":
+it drives a `FastTileRunner` over a slab pool (every block resident when
+the rank codes fit the device budget, else streamed in row panels),
+dispatches `pipeline_depth` tiles ahead, and recovers tiles whose
+certificate fails with a boosted-capacity retry and, past that, an exact
+full-tile extraction.  With the on-device SR reduction (`sr_reduce`
+"auto" when the table fits, or "device") every tile's SR pairs stay on
+the card and `parallel/sr_reduce.run_device_reduction` reduces them
+after the loop; otherwise they are copied to the host and emitted there,
+in the canonical `panel_pair_order(nb, nb)` tile order.  With a
+checkpoint directory the sweep resumes tile by tile.  The host helpers
+(SR counts, top-K sizing, emission) are copies of the JAX package's.
 """
 
 from __future__ import annotations
@@ -176,7 +178,7 @@ def retry_dims(res: TileExtract, block: int, lr_prob: float,
     return max(K2, K), max(k2, k_row)
 
 
-def emit_tile_extract(
+def emit_tile_lr(
     res: TileExtract,
     *,
     B: int,
@@ -189,18 +191,17 @@ def emit_tile_extract(
     lr_prob: Optional[float],
     K: int,
     expected_sr: int,
-    sr_links: List[list],
     lr_rows_sink: Callable,
-    parts: str = "both",
+    **_unused,
 ) -> bool:
-    """Emit one tile's links from its extraction result; returns False if
-    the tile needs the LR retry/fallback (failed certificate or retention
-    kept more than the top-K).
+    """Emit one tile's LR links from its extraction result; returns False
+    if the tile needs the LR retry/fallback (failed certificate or
+    retention kept more than the top-K).
 
-    SR is single-sourced from the primary extraction: its compaction is
-    exact regardless of the LR certificate, so when the LR side fails the
-    caller emits `parts="sr"` from the ORIGINAL result and reruns only
-    `parts="lr"` on the retry/fallback."""
+    The tile's SR pairs are not emitted here: their compaction is exact
+    regardless of the LR certificate, so they are single-sourced from the
+    primary extraction (`emit_sr_pairs`, or the on-device reduction) and
+    only the LR side is redone on the retry/fallback."""
     from ldweaver_tpu_torch.core.sweep import _emit_pairs
 
     if res.n_sr != expected_sr:
@@ -209,7 +210,7 @@ def emit_tile_extract(
         )
     q = None
     kept_sel = None
-    if parts != "sr" and lr_prob is not None and res.n_lr > 0:
+    if lr_prob is not None and res.n_lr > 0:
         if not res.exact:
             return False
         q = lr_threshold_from_topk(res.n_lr, res.vals, lr_prob, K)
@@ -233,14 +234,8 @@ def emit_tile_extract(
         kvals = kvals[order]
         _emit_pairs(
             kidx // B, kidx % B, kvals, pos_f, pos_t, pnt_f, pnt_t,
-            g, sr_dist, lr_prob, sr_links, lr_rows_sink,
+            g, sr_dist, lr_prob, [], lr_rows_sink,
             apply_lr_quantile=False, lr_thresh=q,
-        )
-    if parts != "lr" and res.n_sr:
-        emit_sr_pairs(
-            res.sr_idx[: res.n_sr], res.sr_vals[: res.n_sr], B=B, pos_f=pos_f,
-            pos_t=pos_t, pnt_f=pnt_f, pnt_t=pnt_t, g=g, sr_dist=sr_dist,
-            sr_links=sr_links, lr_rows_sink=lr_rows_sink,
         )
     return True
 
@@ -457,15 +452,13 @@ def extract_tile(
 def full_tile_emit(
     mi: np.ndarray, ranked: RankedSnps, valid: np.ndarray,
     paint_sorted: np.ndarray, bi: int, bj: int, g: int, sr_dist: int,
-    lr_prob: Optional[float], sr_links: List[list], lr_rows_sink: Callable,
-    emit_sr: bool = True,
+    lr_prob: Optional[float], lr_rows_sink: Callable,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Host extraction of a whole [B, B] f32 MI tile (the JAX package's
     `_finish_full` / `_fallback_full_tile`): every valid pair (i > j on a
     diagonal tile), the f64 type-7 LR retention over the tile's LR
-    values.  With emit_sr=False only the LR side is emitted (the tile's SR
-    links were already single-sourced from the primary extraction).
-    Returns the tile's SR pairs (i32 flat index, f32 MI) as emitted."""
+    values.  Emits the LR links and returns the tile's SR pairs (i32 flat
+    index, f32 MI), which the caller emits in the canonical tile order."""
     from ldweaver_tpu_torch.core.mi import circular_len
     from ldweaver_tpu_torch.core.sweep import _emit_pairs
 
@@ -491,8 +484,8 @@ def full_tile_emit(
               vals[sr].astype(np.float32))
     _emit_pairs(
         fii, fjj, vals.astype(np.float64), pos_f, pos_t,
-        paint_sorted[f_sl], paint_sorted[t_sl], g, sr_dist, lr_prob,
-        sr_links if emit_sr else [[] for _ in sr_links], lr_rows_sink,
+        paint_sorted[f_sl], paint_sorted[t_sl], g, sr_dist, lr_prob, [],
+        lr_rows_sink,
     )
     return record
 
@@ -500,8 +493,8 @@ def full_tile_emit(
 def fallback_full_tile(
     dev: DeviceInputs, ranked: RankedSnps, valid: np.ndarray,
     paint_sorted: np.ndarray, bi: int, bj: int, g: int, sr_dist: int,
-    lr_prob: Optional[float], sr_links: List[list], lr_rows_sink: Callable,
-    emit_sr: bool = True, cols: Optional[Tuple[int, int]] = None,
+    lr_prob: Optional[float], lr_rows_sink: Callable,
+    cols: Optional[Tuple[int, int]] = None,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Exact full-tile extraction for tiles the bounded extraction cannot
     certify: the tile on the device, then `full_tile_emit`."""
@@ -512,7 +505,7 @@ def fallback_full_tile(
         pure, cols,
     ).cpu().numpy()
     return full_tile_emit(mi, ranked, valid, paint_sorted, bi, bj, g, sr_dist,
-                          lr_prob, sr_links, lr_rows_sink, emit_sr)
+                          lr_prob, lr_rows_sink)
 
 
 def recover_lr(
@@ -539,11 +532,11 @@ def recover_lr(
                 n_sr=emit_kw["expected_sr"], cols=cols,
             )
             retried = True
-            if emit_tile_extract(res2, K=K2, parts="lr", **emit_kw):
+            if emit_tile_lr(res2, K=K2, **emit_kw):
                 return True, False
     fallback_full_tile(
         dev, ranked, valid, paint_sorted, bi, bj, g, sr_dist, lr_prob,
-        emit_kw["sr_links"], emit_kw["lr_rows_sink"], emit_sr=False, cols=cols,
+        emit_kw["lr_rows_sink"], cols=cols,
     )
     return retried, True
 
@@ -552,7 +545,8 @@ def tile_emit_kw(ranked: RankedSnps, paint_sorted: np.ndarray, bi: int,
                  bj: int, *, g: int, sr_dist: int, lr_prob: Optional[float],
                  expected_sr: int, sr_links: List[list],
                  lr_rows_sink: Callable) -> dict:
-    """The per-tile keyword arguments of `emit_tile_extract`."""
+    """The per-tile keyword arguments of `emit_tile_lr` and
+    `emit_sr_pairs`."""
     B = ranked.block
     f_sl = slice(bi * B, (bi + 1) * B)
     t_sl = slice(bj * B, (bj + 1) * B)
@@ -584,32 +578,56 @@ def blk5_sweep(
     verbose: bool = True,
     sr_reduce: str = "auto",
     checkpoint_dir: Optional[str] = None,
+    device_budget_bytes: Optional[int] = None,
+    pipeline_depth: int = 4,
 ) -> Tuple[Dict[str, float], Optional[DeviceSrReduction]]:
-    """Run BLK5's sweep tile by tile on `device` and emit links in the
-    reference's order (panel order over tiles, row-major inside a tile,
-    f64 thresholds).  Returns (stats, DeviceSrReduction or None).
+    """Run BLK5's sweep tile by tile on `device` (backends "spmd" and
+    "fast" alike) and emit links in the reference's order (row-major
+    inside a tile, f64 thresholds).  Returns (stats, DeviceSrReduction or
+    None).
+
+    The tiles go through a `core.sweep.FastTileRunner`: its slab pool
+    holds every block when the rank codes fit 60% of
+    `device_budget_bytes` (by default the card's memory), else the tiles
+    are visited in row panels and the slabs stream (parallel/slabs.py);
+    `pipeline_depth` tiles are dispatched ahead of the host emission.
+    LR rows come out in visiting order, SR pairs in the canonical
+    `panel_pair_order(nb, nb)` order whatever the panels.
 
     `sr_reduce` selects where the SR background model's heavy pass runs
     (`sr_reduce.select_mode`): on the host, every SR pair is emitted into
-    `sr_links`; on the device, no SR pair is emitted, and the caller
-    finishes with `merge_and_sort_sr_links_from_candidates` on the
-    returned reduction (TSVs byte-identical to the host mode).
+    `sr_links`; on the device, the pairs stay on the card, no SR pair is
+    emitted, and the caller finishes with
+    `merge_and_sort_sr_links_from_candidates` on the returned reduction
+    (TSVs byte-identical to the host mode).
 
     `checkpoint_dir` resumes the sweep tile by tile (the JAX package's
     segment checkpoints, at tile granularity): each finished tile's LR
     rows and, in host SR mode, its SR pairs (i32 flat index, f32 MI) are
-    written atomically, keyed by a manifest of the plan and a checksum of
-    the data.  On a rerun a done tile replays from disk without a
-    dispatch in host mode; in device mode it replays its LR rows and is
-    dispatched again to rebuild its SR pairs on the card."""
+    written atomically, keyed by a manifest of the plan, the device type
+    and a checksum of the data.  On a rerun a done tile replays from disk
+    without a dispatch in host mode; in device mode it replays its LR rows
+    and is dispatched again to rebuild its SR pairs on the card.
+
+    On a CUDA device the sweep resets the card's peak memory statistic
+    and reports its own peaks (`peak_tiles_bytes` after the tiles,
+    `peak_bytes` after the SR reduction)."""
+    from collections import deque
+
     from ldweaver_tpu_torch.core.sweep import (
+        FastTileRunner,
         _BlockCheckpoint,
         data_crc,
         replay_lr_rows,
         tile_payload,
     )
-    from ldweaver_tpu_torch.parallel.slabs import panel_pair_order
+    from ldweaver_tpu_torch.parallel.slabs import (
+        auto_budget,
+        panel_pair_order,
+        plan_budget,
+    )
 
+    device = torch.device(device)
     ranked = stratify(
         snp_data.codes, snp_data.acgtn_table, snp_data.pos, snp_data.r, block
     )
@@ -620,137 +638,152 @@ def blk5_sweep(
         [paint[ranked.perm], np.zeros(ranked.pos.size - snp_data.nsnp, np.int64)]
     )
     g = snp_data.g
-    lr_prob = (
-        None
-        if (perform_sr_only or lr_links_approx is None)
-        else max(0.0, 1.0 - lr_retain_links / lr_links_approx)
-    )
-    K, k_row = extract_dims(B, lr_prob, k_max=topk_cap)
-    prob = 1.0 if lr_prob is None else lr_prob
+    if perform_sr_only:
+        lr_links_approx = None
     sr_counts = sr_pair_counts(ranked, valid, g, sr_dist)
     total_sr = int(sr_counts.sum())
     device_reduce = select_mode(sr_reduce, total_sr, g, device,
                                 verbose) == "device"
-    dev = device_inputs(ranked, valid, hdw, neff, device,
-                        paint_sorted if device_reduce else None)
-    segs = []  # device mode: (bi, bj, sr_idx, sr_vals) of every tile
-
-    stats = dict(tiles=0, retries=0, fallbacks=0, sr_pairs=0, K=K,
-                 k_row=k_row, block=B,
-                 sr_reduce="device" if device_reduce else "host")
+    if device_budget_bytes is None:
+        device_budget_bytes = auto_budget(device)
+    streaming, max_slabs, panel = plan_budget(snp_data.nseq, B, nb,
+                                              device_budget_bytes)
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    runner = FastTileRunner(
+        ranked, paint_sorted, valid, hdw, neff, g, sr_dist, lr_retain_links,
+        lr_links_approx, sr_links, topk_cap=topk_cap, max_slabs=max_slabs,
+        keep_sr=device_reduce, sr_counts=sr_counts, device=device,
+    )
+    depth = max(1, int(pipeline_depth))
+    stats = dict(tiles=0, retries=0, fallbacks=0, demoted=False, sr_pairs=0,
+                 K=runner.K, k_row=runner.k_row, block=B,
+                 sr_reduce="device" if device_reduce else "host",
+                 streaming=streaming, max_slabs=max_slabs, panel=panel,
+                 depth=depth, pool_bytes=runner.cache.pool.numel(), uploads=0,
+                 hits=0, dispatch_s=0.0, finish_s=0.0, sr_emit_s=0.0,
+                 ckpt_s=0.0, ckpt_hits=0)
     ckpt = None
     if checkpoint_dir:
         t0 = time.perf_counter()
         plan = (
             snp_data.nsnp, snp_data.nseq, g, int(sr_dist),
-            float(lr_retain_links), lr_prob, B, K, k_row, int(topk_cap),
-            stats["sr_reduce"],
+            float(lr_retain_links), runner.lr_prob, B, runner.K, runner.k_row,
+            int(topk_cap), stats["sr_reduce"], device.type,
             data_crc(ranked.rank_codes, ranked.pos, ranked.r, paint_sorted,
                      np.asarray(hdw, np.float64)),
         )
         ckpt = _BlockCheckpoint(checkpoint_dir, plan)
-        stats.update(ckpt_hits=0, ckpt_s=time.perf_counter() - t0)
-    primary_parts = "lr" if device_reduce else "both"
-    # wall split of the primary tiles: extraction (device work up to the
-    # copies of its results to the host) and host emission
-    extract_s = emit_s = 0.0
-    for bi, bj in panel_pair_order(nb, nb):
-        Rf = int(ranked.block_rmax[bi])
-        Rt = int(ranked.block_rmax[bj])
-        pure = bool(ranked.block_pure[bi]) and bool(ranked.block_pure[bj])
-        cnt = int(sr_counts[bi, bj])
-        key = f"spmd_{bi}_{bj}"
-        if ckpt is not None:
-            t0 = time.perf_counter()
-            hit = ckpt.load(key)
-            stats["ckpt_s"] += time.perf_counter() - t0
-            if hit is not None:
-                stats["ckpt_hits"] += 1
-                stats["tiles"] += 1
-                stats["sr_pairs"] += cnt
-                emit_kw = tile_emit_kw(
-                    ranked, paint_sorted, bi, bj, g=g, sr_dist=sr_dist,
-                    lr_prob=lr_prob, expected_sr=cnt, sr_links=sr_links,
-                    lr_rows_sink=lr_rows_sink,
-                )
-                if device_reduce:
-                    res = extract_tile(
-                        dev, bi, bj, block=B, sr_dist=int(sr_dist), g=int(g),
-                        K=K, k_row=k_row, prob=prob, Rf=Rf, Rt=Rt, pure=pure,
-                        keep_sr=True, n_sr=cnt,
-                    )
-                    if res.n_sr != cnt:
-                        raise RuntimeError(
-                            f"device SR count {res.n_sr} != host count {cnt}"
-                        )
-                    if cnt:
-                        segs.append((bi, bj, res.sr_idx, res.sr_vals))
-                else:
-                    emit_sr_pairs(hit["sr_idx"], hit["sr_vals"], **emit_kw)
-                replay_lr_rows(hit, lr_rows_sink)
-                continue
-        lr_rows: list = []  # the tile's LR rows, for its checkpoint
+        stats["ckpt_s"] += time.perf_counter() - t0
 
-        def sink(*cols, _rows=lr_rows):
-            _rows.append(tuple(np.asarray(c) for c in cols))
-            lr_rows_sink(*cols)
+    def depth_limit() -> int:
+        """In-flight tile cap.  Extract-mode tiles hold O(P_sr + K) bytes,
+        but full-transfer tiles (post-demotion) each hold a B x B f32
+        output: under a streaming budget, clamp to what ~20% of the
+        budget holds (checked per tile: demotion can flip the mode)."""
+        if not streaming or runner._mode() != "full":
+            return depth
+        return min(depth, max(1, int(device_budget_bytes * 0.2 / (B * B * 4))))
 
+    queue: deque = deque()
+    canonical = list(panel_pair_order(nb, nb))
+    sr_ready: dict = {}  # finished tiles' SR pairs, awaiting their turn
+    segs = []  # device mode: (bi, bj, sr_idx, sr_vals) in canonical order
+    n_emitted = 0
+
+    def finish_one():
+        nonlocal n_emitted
+        bi, bj, pending, hit = queue.popleft()
         t0 = time.perf_counter()
-        res = extract_tile(
-            dev, bi, bj, block=B, sr_dist=int(sr_dist), g=int(g), K=K,
-            k_row=k_row, prob=prob, Rf=Rf, Rt=Rt, pure=pure,
-            keep_sr=device_reduce, n_sr=cnt,
-        )
-        if device_reduce and res.n_sr:
-            segs.append((bi, bj, res.sr_idx, res.sr_vals))
-        t1 = time.perf_counter()
-        extract_s += t1 - t0
-        emit_kw = tile_emit_kw(
-            ranked, paint_sorted, bi, bj, g=g, sr_dist=sr_dist,
-            lr_prob=lr_prob, expected_sr=cnt, sr_links=sr_links,
-            lr_rows_sink=sink,
-        )
-        stats["tiles"] += 1
-        stats["sr_pairs"] += res.n_sr
-        done = emit_tile_extract(res, K=K, parts=primary_parts, **emit_kw)
-        emit_s += time.perf_counter() - t1
-        if not done:
-            # the LR certificate failed, but SR compaction is exact
-            # regardless: emit SR once from the primary extraction and redo
-            # only the LR side
+        if hit is not None:  # a checkpointed tile, replayed in its place
+            if pending is None:
+                sr = (hit["sr_idx"], hit["sr_vals"])
+            else:  # device mode: the SR pairs come from the re-dispatch
+                sr = runner.finish(pending, None)
+                t1 = time.perf_counter()
+                stats["finish_s"] += t1 - t0
+                t0 = t1
+            replay_lr_rows(hit, lr_rows_sink)
+            stats["ckpt_s"] += time.perf_counter() - t0
+        else:
+            rows: list = []  # the tile's LR rows, for its checkpoint
+
+            def sink(*cols):
+                rows.append(tuple(np.asarray(c) for c in cols))
+                lr_rows_sink(*cols)
+
+            sr = runner.finish(pending, sink)
+            t1 = time.perf_counter()
+            stats["finish_s"] += t1 - t0
+            if ckpt is not None:
+                ckpt.save(f"spmd_{bi}_{bj}",
+                          tile_payload(None if device_reduce else sr, rows))
+                stats["ckpt_s"] += time.perf_counter() - t1
+        sr_ready[bi, bj] = sr
+        t0 = time.perf_counter()
+        while n_emitted < len(canonical) and canonical[n_emitted] in sr_ready:
+            ci, cj = canonical[n_emitted]
+            idx, vals = sr_ready.pop((ci, cj))
             if not device_reduce:
-                emit_tile_extract(res, K=K, parts="sr", **emit_kw)
-            retried, fell_back = recover_lr(
-                dev, ranked, valid, paint_sorted, res, bi, bj, g=g,
-                sr_dist=sr_dist, lr_prob=lr_prob, K=K, k_row=k_row,
-                emit_kw=emit_kw,
-            )
-            stats["retries"] += retried
-            stats["fallbacks"] += fell_back
+                runner.emit_sr(ci, cj, idx, vals)
+            elif len(idx):
+                segs.append((ci, cj, torch.as_tensor(idx, device=device),
+                             torch.as_tensor(vals, device=device)))
+            n_emitted += 1
+        stats["sr_emit_s"] += time.perf_counter() - t0
+        stats["tiles"] += 1
+
+    cur_panel = -1
+    for bi, bj in panel_pair_order(nb, panel):
+        if bi // panel != cur_panel:
+            cur_panel = bi // panel
+            runner.pin_panel(range(cur_panel * panel,
+                                   min((cur_panel + 1) * panel, nb)))
+        stats["sr_pairs"] += int(sr_counts[bi, bj])
+        hit = None
         if ckpt is not None:
             t0 = time.perf_counter()
-            sr = ((res.sr_idx[: res.n_sr], res.sr_vals[: res.n_sr])
-                  if not device_reduce else None)
-            ckpt.save(key, tile_payload(sr, lr_rows))
+            hit = ckpt.load(f"spmd_{bi}_{bj}")
             stats["ckpt_s"] += time.perf_counter() - t0
-    stats.update(extract_s=round(extract_s, 3), emit_s=round(emit_s, 3))
-    if ckpt is not None:
-        stats["ckpt_s"] = round(stats["ckpt_s"], 3)
+            stats["ckpt_hits"] += hit is not None
+        pending = None
+        if hit is None or device_reduce:
+            t0 = time.perf_counter()
+            pending = runner.dispatch(bi, bj)
+            stats["dispatch_s"] += time.perf_counter() - t0
+        queue.append((bi, bj, pending, hit))
+        while len(queue) >= depth_limit():
+            finish_one()
+    while queue:
+        finish_one()
+    runner.unpin_all()
+    stats.update(retries=runner.retries, fallbacks=runner.fallbacks,
+                 demoted=runner._demoted, uploads=runner.cache.uploads,
+                 hits=runner.cache.hits)
+    for k in ("dispatch_s", "finish_s", "sr_emit_s", "ckpt_s"):
+        stats[k] = round(stats[k], 3)
+    if cuda:
+        stats["peak_tiles_bytes"] = torch.cuda.max_memory_allocated(device)
     reduction = None
     if device_reduce:
         reduction = run_device_reduction(
-            segs, dev.pos, dev.paint, ranked_pos=ranked.pos,
+            segs, runner.dev.pos, runner.dev.paint, ranked_pos=ranked.pos,
             paint_sorted=paint_sorted, B=B, nb=nb, g=int(g),
             sr_dist=int(sr_dist), nclust=len(sr_links), total_sr=total_sr,
         )
         stats.update(reduction.stats)
+    if cuda:
+        stats["peak_bytes"] = torch.cuda.max_memory_allocated(device)
     if verbose:
         print(
             f"BLK5 sweep: {stats['tiles']} tiles on {device},"
             f" {stats['sr_pairs']} sr pairs, {stats['retries']} retries,"
             f" {stats['fallbacks']} fallbacks, SR reduction on the"
-            f" {stats['sr_reduce']}"
-            + (f", {stats['ckpt_hits']} tiles from checkpoints"
+            f" {stats['sr_reduce']}; slab cache {stats['uploads']} uploads,"
+            f" {stats['hits']} hits ({'streamed' if streaming else 'resident'},"
+            f" {max_slabs or nb} slots, panel {panel}); depth {depth}"
+            + (f"; {stats['ckpt_hits']} tiles from checkpoints"
                if ckpt is not None else ""),
             flush=True,
         )

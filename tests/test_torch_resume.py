@@ -3,8 +3,9 @@
 checkpoint resumes from the checkpoints and writes byte-identical TSVs,
 on every backend: "spmd" in host and device SR mode (tile checkpoints
 under spmd_tiles/; the cases of the JAX package's
-tests/test_spmd_resume.py), "fast" with tiles queued ahead (the crash
-lands mid-queue; tests/test_pipelined_sweep.py's resume case), and the
+tests/test_spmd_resume.py), "fast" (the same tile sweep) with tiles
+queued ahead (the crash lands mid-queue;
+tests/test_pipelined_sweep.py's resume case), and the
 compat "jax" and "numpy" (block-pair checkpoints,
 tests/test_fast_sweep.py's resume case).  A change of the data or of an
 output-relevant knob invalidates the checkpoints.  The crash is injected
@@ -56,7 +57,7 @@ def test_interrupt_then_resume_byte_identical(case, tmp_path, monkeypatch, backe
     with pytest.raises(RuntimeError, match="simulated crash"):
         run_pmc(tmp_path, "die", sd, w, cv, backend, checkpoint_dir=ck, **kw)
     monkeypatch.setattr(tsweep._BlockCheckpoint, "save", orig)
-    sub = os.path.join(ck, "spmd_tiles") if backend == "spmd" else ck
+    sub = os.path.join(ck, "spmd_tiles") if backend in ("spmd", "fast") else ck
     assert len([f for f in os.listdir(sub) if f.endswith(".npz")]) == 1
 
     _, sr_res, lr_res, pt = run_pmc(tmp_path, "res", sd, w, cv, backend,
@@ -82,7 +83,7 @@ def test_data_and_knob_changes_invalidate(case, tmp_path, backend):
     kw = dict(max_blk_sz=1000 if backend == "jax" else 512)
     ck = str(tmp_path / "ck")
     run_pmc(tmp_path, "a", sd, w, cv, backend, checkpoint_dir=ck, **kw)
-    sub = os.path.join(ck, "spmd_tiles") if backend == "spmd" else ck
+    sub = os.path.join(ck, "spmd_tiles") if backend in ("spmd", "fast") else ck
 
     def mtimes():
         return {f: os.stat(os.path.join(sub, f)).st_mtime_ns
@@ -119,10 +120,40 @@ def test_run_block_survives_an_unreadable_checkpoint(case, tmp_path):
     ck = tmp_path / "ck"
     _, sr_a, lr_a, _ = run_pmc(tmp_path, "a", sd, w, cv, "fast", checkpoint_dir=str(ck),
                                max_blk_sz=512)
-    victim = sorted(ck.glob("blk_fast_*.npz"))[3]
+    victim = sorted(ck.glob("spmd_tiles/blk_spmd_*.npz"))[3]
     victim.write_bytes(victim.read_bytes()[:100])
     _, sr_b, lr_b, pt = run_pmc(tmp_path, "b", sd, w, cv, "fast", checkpoint_dir=str(ck),
                                 max_blk_sz=512)
     assert pt["fast"]["ckpt_hits"] == 14
     assert sr_b == sr_a and lr_b == lr_a
     assert np.load(victim)["n_lr"] >= 0  # rewritten whole
+
+
+@pytest.mark.parametrize("backend", ["spmd", "jax"])
+def test_checkpoints_key_on_the_device_type(case, tmp_path, backend):
+    """Tiles checkpointed on one device type are not replayed on another
+    (the card's kernels and the plain versions round differently): the
+    manifest holds the device type, and a manifest written for "cuda"
+    makes a CPU run recompute every tile."""
+    import json
+
+    sd, w, cv = case
+    kw = dict(max_blk_sz=1000 if backend == "jax" else 512)
+    ck = tmp_path / "ck"
+    _, sr_a, lr_a, _ = run_pmc(tmp_path, "a", sd, w, cv, backend,
+                               checkpoint_dir=str(ck), **kw)
+    sub = ck / "spmd_tiles" if backend == "spmd" else ck
+    manifest = sub / "manifest.json"
+    key = json.loads(manifest.read_text())
+    assert key.count("cpu") == 1
+    key[key.index("cpu")] = "cuda"
+    manifest.write_text(json.dumps(key))
+    before = {f.name: f.stat().st_mtime_ns for f in sub.glob("*.npz")}
+    _, sr_b, lr_b, pt = run_pmc(tmp_path, "b", sd, w, cv, backend,
+                                checkpoint_dir=str(ck), **kw)
+    assert sr_b == sr_a and lr_b == lr_a
+    assert json.loads(manifest.read_text()).count("cpu") == 1
+    after = {f.name: f.stat().st_mtime_ns for f in sub.glob("*.npz")}
+    assert set(after) == set(before) and all(after[f] != before[f] for f in before)
+    if backend == "spmd":
+        assert pt["spmd"]["ckpt_hits"] == 0
