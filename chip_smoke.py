@@ -19,7 +19,8 @@ Phases (any failure exits nonzero before the final line):
                B = 4096 x S = 1024, cross- and same-block with pad sites;
      compat  - K3 (the 25-allele compat tile) at the compat pipeline's
                tiles: 4000 x 4000, the ragged 4000 x 191 and the diagonal
-               191 x 191, S = 616, rxy_compat=True;
+               191 x 191, and the sharded sweep's 512 x 512, S = 616,
+               rxy_compat=True;
                each kernel is held against its plain PyTorch version run
                in float64 on the card (the exact result of the kernel's
                own inputs; max abs diff <= 2e-5; for K2 the -inf chunks
@@ -81,9 +82,29 @@ Phases (any failure exits nonzero before the final line):
                the resident call's (pairs and values);
   7. compat  - the compat path, `ldweaver(..., backend="pallas")` through
                BLK1-BLK7 at 616 genomes x 2.2 Mb x 8,192 SNPs,
-               max_blk_sz=4000 (3 blocks, 6 tiles).
+               max_blk_sz=4000 (3 blocks, 6 tiles);
+     sharded - `parallel/sweep.sharded_lr_topk` (K3 on every 512 x 512
+               tile): card against CPU at 64 x 2,048, then one process at
+               616 x 8,192 SNPs (136 tiles);
+     one card- n_devices=2 on the one card raises ValueError;
+  8. multi   - two ranks on cuda:0, joined by torch.distributed on gloo
+               (this script started as `--multi-worker job rank port`,
+               LDW_SR_BUDGET 1 GiB and device_budget_bytes 8 GiB a rank):
+               multi small - the small input with backend="spmd" and
+               sr_reduce auto, part and host, and backend="fast"; multi
+               cli - `python -m ldweaver_tpu_torch.cli run --num-processes
+               2 --device cuda:0 --backend spmd`; each rank's TSVs
+               byte-identical to the single-process card run's.  Then the
+               headline input with sr_reduce="part" (>= 2 k2 ranges), each
+               rank's TSVs byte-identical to the headline phase's, with
+               each rank's BLK5 split, gather seconds and bytes and peak
+               device memory; the LR-only sweep at 1024 x 131,072 over the
+               two ranks (top-1024 equal to the lr phase's resident call,
+               K1 and K2 launches summing to 150 and 378); the sharded
+               sweep over the two ranks (equal to the one-process result).
 Each path runs with the launch counts of its kernels set to 0 just before
-and read just after (the cli phase's launches are its subprocess's own).
+and read just after (the cli phases' and the ranks' launches are their
+subprocesses' own).
 
 Prints one JSON line of per-kernel numbers, then the card's name and
 power limit as nvidia-smi gives them, then the ok line.  The input data
@@ -123,6 +144,9 @@ G = 2_200_000  # S. pneumoniae-scale genome (bench.py)
 SR_DIST = 20000
 K2_S = 1024  # genomes in the LR sweep (bench.py sweep leg)
 K3_F, K3_EDGE = 4000, 191  # the compat pipeline keeps 8,191 SNPs: blocks 4000, 4000, 191
+SHARDED_B, SHARDED_SNPS = 512, 8192  # the sharded sweep's tile and input (616 genomes)
+MULTI_SR_BUDGET = 1 << 30  # LDW_SR_BUDGET of each of the two ranks
+MULTI_DEVICE_BUDGET = 8 << 30  # device_budget_bytes of each of the two ranks
 RTOL_K3, ATOL_K3 = 5e-5, 5e-6  # vs the f64 oracle (tests/test_pallas.py)
 NEAR_TIE = 1e-5
 
@@ -508,7 +532,8 @@ def fused_phase():
 def compat_kernel_phase():
     """K3 at the tile shapes of the 8,191-SNP compat pipeline: 4000 x 4000,
     the ragged 4000 x 191 and the diagonal 191 x 191 (rxy_compat=True, so
-    the ragged tiles carry the column-major RXY alias).  Each against its
+    the ragged tiles carry the column-major RXY alias), and at the sharded
+    sweep's 512 x 512 tile.  Each against its
     plain version in float64 on the card, and a sub-input of up to 256 x
     256 against the host float64 oracle."""
     import torch
@@ -521,7 +546,8 @@ def compat_kernel_phase():
     rows = {}
     # (F, T, first column of the column block): cross-block tiles read the
     # second half of the sites, the diagonal tile its own rows
-    for F, T, t0 in ((K3_F, K3_F, K3_F), (K3_F, K3_EDGE, K3_F), (K3_EDGE, K3_EDGE, 0)):
+    for F, T, t0 in ((K3_F, K3_F, K3_F), (K3_F, K3_EDGE, K3_F), (K3_EDGE, K3_EDGE, 0),
+                     (SHARDED_B, SHARDED_B, K3_F)):
         tag = f"K3 {F}x{T}"
         cf = np.ascontiguousarray(codes[:, :F].T)
         ct = np.ascontiguousarray(codes[:, t0 : t0 + T].T)
@@ -699,6 +725,7 @@ def small_phase(backend):
     d = os.path.join(WORK, f"small_{backend}")
     os.makedirs(d)
     fa, pos, gbk = synth_snp_alignment(d, nseq=48, g=200_000, nsnp=3000, seed=1)
+    np.save(os.path.join(d, "pos.npy"), pos)  # for the two-rank runs
     out = {}
     runs = [("cuda", "cuda", {}), ("cpu", "cpu", {})]
     if backend == "spmd":
@@ -776,10 +803,10 @@ def dispatch_must_not_sync(on):
 
     orig = FastTileRunner.dispatch
 
-    def strict(self, bi, bj):
+    def strict(self, bi, bj, lane=None):
         torch.cuda.set_sync_debug_mode("error")
         try:
-            return orig(self, bi, bj)
+            return orig(self, bi, bj, lane)
         finally:
             torch.cuda.set_sync_debug_mode(0)
 
@@ -911,7 +938,7 @@ def blk5_split(timings, backend="spmd"):
     sweep = blk5[backend]
     keys = ("sr_reduce", "tiles", "retries", "fallbacks", "sr_pairs", "depth",
             "streaming", "pool_bytes", "uploads", "hits", "dispatch_s", "finish_s",
-            "sr_emit_s", "ckpt_s", "peak_tiles_bytes", "peak_bytes", "bg_stats_s",
+            "emit_s", "ckpt_s", "peak_tiles_bytes", "peak_bytes", "bg_stats_s",
             "bg_fit_s", "bg_cand_s", "cand_count", "cand_mb", "bg_order_s")
     return dict(blk5_mi_computation=timings["blk5_mi_computation"],
                 **{k: sweep.get(k) for k in keys},
@@ -945,6 +972,7 @@ def headline_phase(sr_reduce="auto"):
     os.makedirs(d)
     t0 = time.time()
     fa, pos, gbk = synth_snp_alignment(d, nseq=616, g=G, nsnp=HEADLINE_SNPS)
+    np.save(os.path.join(d, "pos.npy"), pos)
     log(f"headline input generated in {time.time() - t0:.1f} s")
     dset = os.path.join(d, "ldw_out")
     torch.cuda.empty_cache()
@@ -990,7 +1018,10 @@ def headline_phase(sr_reduce="auto"):
     if spmd["sr_pairs"] != host_sr:
         raise RuntimeError(f"headline: {spmd['sr_pairs']} SR pairs on the card,"
                            f" {host_sr} from the positions")
-    return by_bucket, dict(fa=fa, pos=pos, gbk=gbk, dset=dset)
+    inputs = dict(fa=fa, pos=pos, gbk=gbk, dset=dset)
+    with open(os.path.join(d, "inputs.json"), "wt") as fh:  # for the two ranks
+        json.dump(dict(inputs, pos=os.path.join(d, "pos.npy")), fh)
+    return by_bucket, inputs
 
 
 HEADLINE_FAST_BUDGET = 50_331_648  # 48 MiB: 11 slabs of 616 x 4096, panels of 9
@@ -1038,7 +1069,7 @@ def headline_fast_phase(inputs, depth=4):
         f" depth {depth}, BLK1-BLK7): {json.dumps(res)}")
     log(f"headline fast: wall {wall:.1f} s, BLK5 {timings['blk5_mi_computation']:.2f} s"
         f" (dispatch {fast['dispatch_s']} s, finish {fast['finish_s']} s, SR"
-        f" hand-over {fast['sr_emit_s']} s, checkpoints {fast['ckpt_s']} s, SR"
+        f" emission {fast['emit_s']} s, checkpoints {fast['ckpt_s']} s, SR"
         f" stats {fast.get('bg_stats_s')} s, fit {fast.get('bg_fit_s')} s;"
         f" background {blk5.get('background_s')} s), slab uploads"
         f" {fast['uploads']}, hits {fast['hits']}; BLK5 peak device memory"
@@ -1203,6 +1234,7 @@ def lr_phase():
             raise RuntimeError(f"LR sweep: K2 launched {k2} times for {n22}"
                                f" (2,2,pure) tiles, K1 {k1} times")
     median = float(np.median(walls))
+    np.savez(os.path.join(WORK, "lr_resident.npz"), pos1=pos1, pos2=pos2, mi=mi)
     pairs = sd.nsnp * (sd.nsnp - 1) // 2
     busy = device_time_split(
         lambda: fast_lr_topk(sr_dist=SR_DIST, topk=1024, state=state))
@@ -1292,6 +1324,320 @@ def compat_phase():
     return by_shape
 
 
+# --------------------------------------------------------------------------
+# 8. two ranks on the one card (torch.distributed on gloo)
+# --------------------------------------------------------------------------
+MULTI_SMALL = (("spmd_auto", "spmd", "auto"), ("spmd_part", "spmd", "part"),
+               ("spmd_host", "spmd", "host"), ("fast", "fast", "auto"))
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def launch_ranks(job, argvs=None, timeout=900):
+    """Start two processes (this script's `--multi-worker job rank port`
+    by default, else `argvs[rank]` with the port filled in), both on
+    cuda:0, joined over gloo; wait for both and fail unless both exit 0.
+    Each rank's output goes to WORK/multi/<job>_r<rank>.log."""
+    d = os.path.join(WORK, "multi")
+    os.makedirs(d, exist_ok=True)
+    port = str(free_port())
+    env = dict(os.environ, LDW_SR_BUDGET=str(MULTI_SR_BUDGET))
+    procs, logs = [], []
+    for rank in range(2):
+        argv = ([sys.executable, os.path.abspath(__file__), "--multi-worker", job,
+                 str(rank), port] if argvs is None
+                else [a.replace("{port}", port) for a in argvs[rank]])
+        logs.append(os.path.join(d, f"{job}_r{rank}.log"))
+        with open(logs[-1], "wt") as fh:
+            procs.append(subprocess.Popen(argv, cwd=REPO, env=env, stdout=fh,
+                                          stderr=subprocess.STDOUT))
+    t0 = time.time()
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, timeout - (time.time() - t0)))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.time() - t0
+    for rank, (p, path) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            log(open(path).read()[-6000:])
+            raise RuntimeError(f"multi {job}: rank {rank} exited {p.returncode}")
+    return wall
+
+
+def multi_worker(job, rank, port):
+    """One of the two ranks of `launch_ranks`: the bring-up first, then
+    the job's runs on cuda:0; its results into WORK/multi/<job>_r<rank>.json."""
+    from ldweaver_tpu_torch.parallel.multihost import initialize_multihost
+
+    initialize_multihost(f"localhost:{port}", 2, rank)
+    import torch
+
+    import ldweaver_tpu_torch
+    from ldweaver_tpu_torch.ops import compat_mi, fused_tile, rank_mi
+    from ldweaver_tpu_torch.parallel.fast_sweep import fast_lr_topk, prepare_fast_sweep
+    from ldweaver_tpu_torch.parallel.sweep import sharded_lr_topk
+
+    out = {}
+    if job == "small":
+        src = os.path.join(WORK, "small_spmd")
+        pos = np.load(os.path.join(src, "pos.npy"))
+        for tag, backend, mode in MULTI_SMALL:
+            rank_mi.K1.reset()
+            dset = os.path.join(WORK, "multi", "small", f"r{rank}", tag)
+            ldweaver_tpu_torch.ldweaver(
+                dset=dset, aln_path=os.path.join(src, "snps.fa.gz"),
+                aln_has_all_bases=False, pos=pos,
+                gbk_path=os.path.join(src, "ref.gbk"), backend=backend,
+                max_blk_sz=1024, SnpEff_Annotate=False, lr_retain_links=20000,
+                sr_reduce=mode, device_budget_bytes=MULTI_DEVICE_BUDGET,
+                device="cuda:0",
+            )
+            out[tag] = dict(k1=rank_mi.K1.launches, blk5=json.load(open(
+                os.path.join(dset, "timings.json")))["blk5_phases"][backend])
+    elif job == "big":
+        inputs = json.load(open(os.path.join(WORK, "headline", "inputs.json")))
+        dset = os.path.join(WORK, "multi", "headline", f"r{rank}")
+        rank_mi.K1.reset()
+        t0 = time.time()
+        ldweaver_tpu_torch.ldweaver(
+            dset=dset, aln_path=inputs["fa"], aln_has_all_bases=False,
+            pos=np.load(inputs["pos"]), gbk_path=inputs["gbk"], backend="spmd",
+            max_blk_sz=4096, SnpEff_Annotate=False, sr_reduce="part",
+            device_budget_bytes=MULTI_DEVICE_BUDGET, device="cuda:0",
+        )
+        torch.cuda.synchronize()
+        out["headline"] = dict(
+            wall_s=time.time() - t0, k1=rank_mi.K1.launches,
+            k1_by_bucket={str(k): v for k, v in rank_mi.K1.by_bucket.items()},
+            timings=json.load(open(os.path.join(dset, "timings.json"))))
+        torch.cuda.empty_cache()
+        # the LR-only sweep of the lr phase, the tiles shared by the ranks
+        sd, w = bench_snp_data(131072, 1024, seed=0)
+        state = prepare_fast_sweep(sd, w, block=4096,
+                                   hbm_budget_bytes=MULTI_DEVICE_BUDGET,
+                                   device="cuda:0")
+        rank_mi.K1.reset()
+        fused_tile.K2.reset()
+        t0 = time.time()
+        p1, p2, mi = fast_lr_topk(sr_dist=SR_DIST, topk=1024, state=state)
+        out["lr"] = dict(wall_s=time.time() - t0, k1=rank_mi.K1.launches,
+                         k2=fused_tile.K2.launches,
+                         k1_by_bucket={str(k): v for k, v in rank_mi.K1.by_bucket.items()})
+        np.savez(os.path.join(WORK, "multi", f"lr_r{rank}.npz"), pos1=p1, pos2=p2, mi=mi)
+        del state
+        torch.cuda.empty_cache()
+        # the sharded compat sweep through K3
+        sd, w = bench_snp_data(SHARDED_SNPS, S, seed=6)
+        compat_mi.K3.reset()
+        t0 = time.time()
+        res = sharded_lr_topk(sd, w, block=SHARDED_B, sr_dist=SR_DIST, topk=1024,
+                              device="cuda:0")
+        out["sharded"] = dict(wall_s=time.time() - t0, k3=compat_mi.K3.launches)
+        np.savez(os.path.join(WORK, "multi", f"sharded_r{rank}.npz"),
+                 **dict(zip(("pos1", "pos2", "mi", "hist"), res)))
+    with open(os.path.join(WORK, "multi", f"{job}_r{rank}.json"), "wt") as fh:
+        json.dump(out, fh)
+
+
+def read_rank(job, rank):
+    return json.load(open(os.path.join(WORK, "multi", f"{job}_r{rank}.json")))
+
+
+def multi_small_phase():
+    """Two ranks on cuda:0 over gloo on the small input: spmd with
+    sr_reduce auto, part and host, and fast; every rank's TSVs
+    byte-identical to the card's single-process run (small_phase's)."""
+    import torch
+
+    torch.cuda.empty_cache()
+    wall = launch_ranks("small")
+    ref = {"spmd": os.path.join(WORK, "small_spmd", "cuda"),
+           "fast": os.path.join(WORK, "small_fast", "cuda")}
+    same, k1 = {}, 0
+    for rank in range(2):
+        got = read_rank("small", rank)
+        for tag, backend, mode in MULTI_SMALL:
+            st = got[tag]["blk5"]
+            dset = os.path.join(WORK, "multi", "small", f"r{rank}", tag)
+            same[rank, tag] = all(tsv_bytes(dset, n) == tsv_bytes(ref[backend], n)
+                                  for n in ("sr_links.tsv", "lr_links.tsv"))
+            want = {"auto": "device", "part": "device-part", "host": "host"}[mode]
+            if st["shards"] != 2 or st["rank"] != rank or st["sr_reduce"] != want:
+                raise RuntimeError(f"multi small {tag} rank {rank}: {st}")
+            if mode == "part" and st["sr_partitions"] < 2:
+                raise RuntimeError(f"multi small {tag}: one k2 range")
+            k1 += got[tag]["k1"]
+    log(f"multi small (two ranks on cuda:0, {wall:.1f} s): byte-identical to the"
+        f" single-process card runs {dict((f'r{r}/{t}', v) for (r, t), v in same.items())};"
+        f" K1 launches of both ranks {k1}")
+    if not all(same.values()):
+        raise RuntimeError("multi small: a rank's TSVs differ from the single-process run's")
+
+
+def multi_cli_phase():
+    """The CLI with --num-processes 2 --device cuda:0 --backend spmd on the
+    small input: both ranks' TSVs byte-identical to cli_phase's run."""
+    d = os.path.join(WORK, "cli")
+    argvs = [[sys.executable, "-m", "ldweaver_tpu_torch.cli", "run", "--dset",
+              os.path.join(d, f"multi_r{rank}"), "--aln",
+              os.path.join(d, "snps.fa.gz"), "--pos", os.path.join(d, "snps.pos"),
+              "--gbk", os.path.join(d, "ref.gbk"), "--device", "cuda:0",
+              "--backend", "spmd", "--max-blk-sz", "1024", "--lr-retain-links",
+              "20000", "--coordinator", "localhost:{port}", "--num-processes",
+              "2", "--process-id", str(rank)] for rank in range(2)]
+    wall = launch_ranks("cli", argvs)
+    same = {}
+    for rank in range(2):
+        dset = os.path.join(d, f"multi_r{rank}")
+        spmd = json.load(open(os.path.join(dset, "timings.json")))["blk5_phases"]["spmd"]
+        if spmd["shards"] != 2 or spmd["rank"] != rank:
+            raise RuntimeError(f"multi cli rank {rank}: {spmd}")
+        for n in ("sr_links.tsv", "lr_links.tsv"):
+            same[f"r{rank}/{n}"] = tsv_bytes(dset, n) == tsv_bytes(
+                os.path.join(d, "out_spmd"), n)
+    log(f"multi cli (--num-processes 2 --device cuda:0, {wall:.1f} s):"
+        f" byte-identical to the single-process CLI run {same}")
+    if not all(same.values()):
+        raise RuntimeError("multi cli: a rank's TSVs differ from the single-process run's")
+
+
+def multi_big_phase(inputs):
+    """Two ranks on cuda:0: the headline (616 x 131,072, BLK1-BLK7,
+    sr_reduce="part", LDW_SR_BUDGET 1 GiB a rank), the LR-only sweep at
+    1024 x 131,072 and the sharded sweep through K3.  Each rank's
+    headline TSVs byte-identical to the headline phase's, its top-1024
+    equal to the lr phase's resident call, its sharded result equal to
+    the single-process one (sharded_phase)."""
+    import torch
+
+    torch.cuda.empty_cache()
+    wall = launch_ranks("big")
+    res = {"wall_s": wall}
+    by_bucket, lr_by_bucket = {}, {}
+    k1_lr = k2_lr = k3 = 0
+    ref = np.load(os.path.join(WORK, "lr_resident.npz"))
+    ref_sh = np.load(os.path.join(WORK, "sharded_single.npz"))
+    for rank in range(2):
+        got = read_rank("big", rank)
+        h = got["headline"]
+        spmd = h["timings"]["blk5_phases"]["spmd"]
+        dset = os.path.join(WORK, "multi", "headline", f"r{rank}")
+        same = {n: tsv_bytes(dset, n) == tsv_bytes(inputs["dset"], n)
+                for n in ("sr_links.tsv", "lr_links.tsv")}
+        for k, v in h["k1_by_bucket"].items():
+            by_bucket[k] = by_bucket.get(k, 0) + v
+        for k, v in got["lr"]["k1_by_bucket"].items():
+            lr_by_bucket[k] = lr_by_bucket.get(k, 0) + v
+        k1_lr += got["lr"]["k1"]
+        k2_lr += got["lr"]["k2"]
+        k3 += got["sharded"]["k3"]
+        lr = np.load(os.path.join(WORK, "multi", f"lr_r{rank}.npz"))
+        lr_equal = all(np.array_equal(lr[k], ref[k]) for k in ("pos1", "pos2", "mi"))
+        sh = np.load(os.path.join(WORK, "multi", f"sharded_r{rank}.npz"))
+        sh_equal = all(np.array_equal(sh[k], ref_sh[k]) for k in sh.files)
+        res[f"r{rank}"] = dict(
+            wall_s=h["wall_s"], blk5_s=h["timings"]["blk5_mi_computation"],
+            blocks={k: v for k, v in h["timings"].items()
+                    if k.startswith("blk") and k != "blk5_phases"},
+            blk5=blk5_split(h["timings"]), k1=h["k1"], tiles=spmd["tiles"],
+            sr_partitions=spmd.get("sr_partitions"), range_mb=spmd.get("range_mb"),
+            gather_s=spmd["gather_s"], gather_bytes=spmd["gather_bytes"],
+            peak_bytes=spmd["peak_bytes"], peak_tiles_bytes=spmd["peak_tiles_bytes"],
+            sr_pairs_on_rank=spmd["sr_pairs"], cand_count=spmd.get("cand_count"),
+            tsv_byte_identical=same, lr_wall_s=got["lr"]["wall_s"],
+            lr_k1=got["lr"]["k1"], lr_k2=got["lr"]["k2"], lr_topk_equal=lr_equal,
+            sharded_wall_s=got["sharded"]["wall_s"], sharded_k3=got["sharded"]["k3"],
+            sharded_equal=sh_equal)
+        log(f"multi headline rank {rank}: {json.dumps(res[f'r{rank}'])}")
+        if spmd["sr_reduce"] != "device-part" or spmd["sr_partitions"] < 2:
+            raise RuntimeError(f"multi headline rank {rank}: not partitioned: {spmd}")
+        if not all(same.values()):
+            raise RuntimeError(f"multi headline rank {rank}: TSVs differ from the headline's")
+        if spmd["shards"] != 2 or spmd["tiles"] != 264 or h["k1"] < 264:
+            raise RuntimeError(f"multi headline rank {rank}: {spmd['tiles']} tiles,"
+                               f" K1 {h['k1']}")
+        if not lr_equal or not sh_equal:
+            raise RuntimeError(f"multi rank {rank}: the LR top-1024 ({lr_equal}) or the"
+                               f" sharded result ({sh_equal}) differs from one process's")
+    log(f"multi lr: K1 {k1_lr} and K2 {k2_lr} launches over the two ranks;"
+        f" multi sharded: K3 {k3}")
+    if (k1_lr, k2_lr) != (150, 378):
+        raise RuntimeError(f"multi lr: K1 {k1_lr}, K2 {k2_lr} launches (150, 378 expected)")
+    n_sh = SHARDED_SNPS // SHARDED_B
+    if k3 != n_sh * (n_sh + 1) // 2:
+        raise RuntimeError(f"multi sharded: K3 launched {k3} times")
+    return ({eval(k): v for k, v in by_bucket.items()},
+            {eval(k): v for k, v in lr_by_bucket.items()}, k2_lr, k3)
+
+
+def sharded_phase():
+    """`parallel/sweep.sharded_lr_topk` (K3 on every 512 x 512 tile) in
+    one process on the card at 616 genomes x 8,192 SNPs (136 tiles), saved
+    for the two-rank run; and card against CPU (plain versions) at 64 x
+    2,048."""
+    import torch
+
+    from ldweaver_tpu_torch.ops import compat_mi
+    from ldweaver_tpu_torch.parallel.sweep import sharded_lr_topk
+
+    sd, w = bench_snp_data(2048, 64, seed=7)
+    kw = dict(block=SHARDED_B, sr_dist=SR_DIST, topk=1024)
+    card = sharded_lr_topk(sd, w, device="cuda", **kw)
+    cpu = sharded_lr_topk(sd, w, device="cpu", **kw)
+    kc = dict(zip(zip(card[0].tolist(), card[1].tolist()), card[2].tolist()))
+    kp = dict(zip(zip(cpu[0].tolist(), cpu[1].tolist()), cpu[2].tolist()))
+    kth = min(card[2][-1], cpu[2][-1])
+    far = [k for k in set(kc) ^ set(kp) if kc.get(k, kp.get(k)) - kth > NEAR_TIE]
+    diff = max(abs(kc[k] - kp[k]) for k in set(kc) & set(kp))
+    hist_diff = int(np.abs(card[3].astype(np.int64) - cpu[3]).sum())
+    log(f"sharded sweep, card vs CPU (64 x 2,048): {len(set(kc) ^ set(kp))} pairs on"
+        f" one side only ({len(far)} beyond a near-tie), MI max abs diff {diff:.2e},"
+        f" histogram |diff| {hist_diff} of {int(cpu[3].sum())}")
+    if far or diff > 1.2e-4 or hist_diff > 2:
+        raise RuntimeError("sharded sweep: card and CPU disagree")
+    sd, w = bench_snp_data(SHARDED_SNPS, S, seed=6)
+    compat_mi.K3.reset()
+    t0 = time.time()
+    res = sharded_lr_topk(sd, w, device="cuda", **kw)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = compat_mi.K3.launches
+    np.savez(os.path.join(WORK, "sharded_single.npz"),
+             **dict(zip(("pos1", "pos2", "mi", "hist"), res)))
+    log(f"sharded sweep ({S} x {SHARDED_SNPS}, block {SHARDED_B}, one process):"
+        f" {wall:.2f} s, K3 {launches} launches, top MI {res[2][0]:.6f}, k-th"
+        f" {res[2][-1]:.6f}, SR histogram total {int(res[3].sum())}")
+    if not (res[2].size == 1024 and np.isfinite(res[2]).all()):
+        raise RuntimeError("sharded sweep: malformed top-k")
+    return launches
+
+
+def one_card_phase():
+    """n_devices=2 on the one card raises ValueError, before any work."""
+    from ldweaver_tpu_torch.parallel.fast_sweep import fast_lr_topk
+    from ldweaver_tpu_torch.support import resolve_devices
+
+    sd, w = bench_snp_data(1024, 16, seed=1)
+    for call in (lambda: resolve_devices("cuda", 2),
+                 lambda: fast_lr_topk(sd, w, block=512, n_devices=2, device="cuda")):
+        try:
+            call()
+        except ValueError as e:
+            log(f"n_devices=2 on one card: ValueError: {e}")
+        else:
+            raise RuntimeError("n_devices=2 on one card did not raise")
+
+
 def timed(name, fn, *args):
     """Run one phase and log its wall time."""
     t0 = time.time()
@@ -1319,25 +1665,35 @@ def main():
     fast_by_bucket = timed("headline fast", headline_fast_phase, headline_inputs)
     lr, lr_k1, lr_stream_k1 = timed("lr", lr_phase)
     k3_by_shape = timed("compat", compat_phase)
+    k3_sharded = timed("sharded", sharded_phase)
+    timed("one card", one_card_phase)
+    timed("multi small", multi_small_phase)
+    timed("multi cli", multi_cli_phase)
+    multi_by_bucket, multi_lr_by_bucket, multi_k2, multi_k3 = timed(
+        "multi headline, lr, sharded", multi_big_phase, headline_inputs)
     kernels = []
     # K1 at the spmd slice's S = 616 and the LR sweep's S = 1024, each row
     # with the launches of the path that runs the kernel at that shape (the
     # S = 616 rows also with the headline run's)
-    unmeasured = (set(headline_by_bucket) | set(fast_by_bucket)) - set(k1_slice)
+    unmeasured = (set(headline_by_bucket) | set(fast_by_bucket)
+                  | set(multi_by_bucket)) - set(k1_slice)
     if unmeasured:
         raise RuntimeError(f"K1 launched on the headline runs in buckets not"
                            f" measured at its shape: {sorted(unmeasured)}")
     for rows, path_launches, path in ((k1_slice, by_bucket, "spmd slice"),
-                                      (k1_lr, {**lr_k1, **lr_stream_k1}, "LR sweep")):
+                                      (k1_lr, {**lr_k1, **lr_stream_k1,
+                                               **multi_lr_by_bucket}, "LR sweep")):
         unmeasured = set(path_launches) - set(rows)
         if unmeasured:
             raise RuntimeError(f"K1 launched on the {path} in buckets not"
                                f" measured at its shape: {sorted(unmeasured)}")
         for (Rf, Rt, pure), row in rows.items():
             extra = ({"launches_headline": headline_by_bucket.get((Rf, Rt, pure), 0),
-                      "launches_headline_fast": fast_by_bucket.get((Rf, Rt, pure), 0)}
+                      "launches_headline_fast": fast_by_bucket.get((Rf, Rt, pure), 0),
+                      "launches_multi_headline": multi_by_bucket.get((Rf, Rt, pure), 0)}
                      if rows is k1_slice else
-                     {"launches_lr_streamed": lr_stream_k1.get((Rf, Rt, pure), 0)})
+                     {"launches_lr_streamed": lr_stream_k1.get((Rf, Rt, pure), 0),
+                      "launches_multi_lr": multi_lr_by_bucket.get((Rf, Rt, pure), 0)})
             kernels.append(dict(
                 name=(f"rank_mi_tile[Rf={Rf},Rt={Rt},"
                       f"{'pure' if pure else 'general'},S={row['S']}]"),
@@ -1355,17 +1711,22 @@ def main():
         source="ldweaver_tpu_torch/csrc/fused_tile.cu",
         replaces="ldweaver_tpu/ops/pallas_fused_tile.py:42",
         launches=lr["k2_launches"], launches_lr_streamed=lr["stream_k2_launches"],
+        launches_multi_lr=multi_k2,
         **k2_row,
     ))
+    k3_by_shape = dict(k3_by_shape)
+    k3_by_shape[SHARDED_B, SHARDED_B] = k3_sharded  # the sharded sweep's tile
     unmeasured = set(k3_by_shape) - set(k3_rows)
     if unmeasured:
         raise RuntimeError(f"K3 launched at tile shapes not measured: {sorted(unmeasured)}")
     for (F, T), row in k3_rows.items():
+        sharded = (F, T) == (SHARDED_B, SHARDED_B)
         kernels.append(dict(
             name=f"compat_mi_tile[{F}x{T},S={S}]", route="cuda",
             source="ldweaver_tpu_torch/csrc/compat_mi.cu",
             replaces="ldweaver_tpu/ops/pallas_mi.py:28",
             launches=k3_by_shape.get((F, T), 0),
+            **({"launches_multi_sharded": multi_k3} if sharded else {}),
             **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                    "bound_by", "bound_frac", "library_ms")},
         ))
@@ -1379,4 +1740,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--multi-worker"]:
+        multi_worker(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]))
+    else:
+        main()

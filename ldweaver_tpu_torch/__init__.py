@@ -2,7 +2,8 @@
 
 A port of the JAX package `ldweaver_tpu` (which stays the reference): the
 same genome-wide epistasis pipeline, with the all-vs-all Hamming-weighted
-SNP-pair mutual-information sweep on one CUDA device.  Every MI tile runs
+SNP-pair mutual-information sweep on one or more CUDA devices and
+processes.  Every MI tile runs
 in a hand-written CUDA kernel (csrc/*.cu, wrapped by ops/*.py); host code
 (ingest, CDS diversity, background model, ARACNE, annotation, writers,
 plots) is a copy of the reference package's.  The port imports neither
@@ -13,9 +14,10 @@ defaults (SnpEff_Annotate=True): BLK1-BLK7 with the BLK5 backends "spmd"
 (kernel K1), "jax" (the default), "pallas" (kernel K3) and "numpy", then
 annotation, tophits, tanglegram, GWESExplorer export, network plots and
 the long-range analysis.  Entry points run on device="cuda" unless the
-caller passes device="cpu" (the kernels' plain PyTorch versions).  The
-options still to port raise NotImplementedError naming their ROADMAP.md
-item.  The CLI is `python -m ldweaver_tpu_torch.cli`.
+caller passes device="cpu" (the kernels' plain PyTorch versions);
+`n_devices` and the processes of `torch.distributed`
+(parallel/multihost.py) shard BLK5.  The CLI is
+`python -m ldweaver_tpu_torch.cli`.
 
 Layer map:
   io/       - FASTA ingest, GenBank/GFF3 parsing, TSV readers/writers

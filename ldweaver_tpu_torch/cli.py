@@ -9,8 +9,10 @@ command line parses in both.
 
 `run --device` (default cuda) is the entry points' `device` argument;
 `run --backend` defaults to fast, as in the reference package's CLI.
-Multi-process and multi-device runs are not ported yet: their options
-raise NotImplementedError naming ROADMAP.md item 10.
+`--n-devices` shards BLK5 over local devices; `--coordinator host:port
+--num-processes N --process-id I` joins N processes over
+`torch.distributed` (gloo) before anything touches CUDA
+(parallel/multihost.py), and every process writes the same outputs.
 """
 
 from __future__ import annotations
@@ -58,11 +60,10 @@ def build_parser():
                      help="torch device of BLK4 and BLK5: cuda (default) or"
                           " cpu (the kernels' plain PyTorch versions)")
     run.add_argument("--coordinator", default=None,
-                     help="multi-process coordinator address (host:port);"
-                          " not ported yet (ROADMAP.md item 10)")
+                     help="multi-process coordinator address (host:port of"
+                          " process 0)")
     run.add_argument("--num-processes", type=int, default=None,
-                     help="total process count; not ported yet (ROADMAP.md"
-                          " item 10)")
+                     help="total process count")
     run.add_argument("--process-id", type=int, default=None,
                      help="this process's id in [0, num_processes)")
     run.add_argument("--device-budget-bytes", type=int, default=None,
@@ -73,17 +74,19 @@ def build_parser():
                      help="tiles the fast backend dispatches ahead of the"
                           " host emission (1 = synchronous)")
     run.add_argument("--n-devices", type=int, default=None,
-                     help="devices of the sweep (default one; more is"
-                          " ROADMAP.md item 10)")
+                     help="local devices of the sweep, one shard each"
+                          " (default: every card, one a process under"
+                          " several processes; on cpu one)")
     run.add_argument("--sr-reduce", default="auto",
                      choices=["auto", "device", "part", "host"],
                      help="where the spmd backend's SR background reduction"
                           " runs: auto on the device when the SR table fits"
                           " LDW_SR_BUDGET or 0.35 of the card's memory (a"
                           " loud WARNING and the host otherwise); device on"
-                          " the device whatever its size; part as auto on"
-                          " one device (across devices ROADMAP.md item 10);"
-                          " host copies the SR table to the host.  The TSVs"
+                          " the device whatever its size; part the"
+                          " grid-partitioned reduction over several shards"
+                          " (auto on one); host copies the SR table to the"
+                          " host.  The TSVs"
                           " are byte-identical in every mode")
 
     lr = sub.add_parser("lr-analyse",
@@ -110,20 +113,18 @@ def build_parser():
     return p
 
 
-def _refuse_unported(args) -> None:
-    """The `run` options the reference package has and the port does not
-    yet; n_devices is refused by the pipeline's own check."""
-    if args.num_processes or args.coordinator:
-        raise NotImplementedError(
-            "--coordinator / --num-processes: multi-process runs are not"
-            " ported yet (ROADMAP.md item 10)"
-        )
-
-
 def main(argv=None):
     args = build_parser().parse_args(argv)
     if args.cmd == "run":
-        _refuse_unported(args)
+        # multi-process bring-up first, before anything touches CUDA
+        if args.num_processes or args.coordinator:
+            from ldweaver_tpu_torch.parallel.multihost import initialize_multihost
+
+            initialize_multihost(
+                coordinator_address=args.coordinator,
+                num_processes=args.num_processes,
+                process_id=args.process_id,
+            )
         from ldweaver_tpu_torch.config import LDWeaverConfig
         from ldweaver_tpu_torch.pipeline import ldweaver
 

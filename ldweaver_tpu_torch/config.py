@@ -58,7 +58,8 @@ class LDWeaverConfig:
 
     # --- compute (device settings in place of ncores/mega_dset)
     max_blk_sz: int = 10000
-    # devices to run the sweep on (None = one; more is not ported yet)
+    # local devices of the sweep, one shard each (None = every card, one
+    # a process under several processes; "cpu": one; support.resolve_devices)
     n_devices: Optional[int] = None
     # replicate R's seeded 10% subsampling when estimating the number of LR
     # links (reference: R/computePairwiseMI.R:92-101, set.seed(1988)).  When
@@ -74,8 +75,9 @@ class LDWeaverConfig:
     # where the SR background reduction runs for backend='spmd'
     # (parallel/sr_reduce.py): 'auto' = on the device when the SR table
     # fits the budget, else the host with a warning; 'device' = always on
-    # the device; 'part' = 'auto' on one device; 'host' = copy the SR
-    # table to the host.  Outputs are byte-identical across modes.
+    # the device; 'part' = the grid-partitioned reduction over several
+    # shards ('auto' on one); 'host' = copy the SR table to the host.
+    # Outputs are byte-identical across modes.
     sr_reduce: str = "auto"
 
     def __post_init__(self):

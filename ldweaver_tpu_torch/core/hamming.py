@@ -30,7 +30,7 @@ import torch
 
 from ldweaver_tpu_torch.parallel.fast_sweep import stratify
 from ldweaver_tpu_torch.parallel.spmd_sweep import fast_block_size
-from ldweaver_tpu_torch.support import check_supported, resolve_device
+from ldweaver_tpu_torch.support import check_supported, resolve_devices
 
 
 def hamming_weights_numpy(codes: np.ndarray, threshold: float = 0.1) -> np.ndarray:
@@ -69,13 +69,16 @@ def estimate_hamming_distance_weights(
     max_blk_sz: int = 10000, n_devices=None, device="cuda",
 ) -> np.ndarray:
     """BLK4: the Hamming weights of every sequence.  backend="numpy" takes
-    the float64 host oracle; every other backend computes them on `device`
-    from the r-stratified rank codes of the BLK5 tile size (exact integer
-    counts, so the weights are bit-equal across backends)."""
+    the float64 host oracle; every other backend computes them on the first
+    of the local devices (`support.resolve_devices(device, n_devices)`)
+    from the r-stratified rank codes of the BLK5 tile size.  The counts are
+    exact integers, so the weights are bit-equal across backends, devices
+    and processes; under several processes each one computes them whole,
+    and no collective is needed."""
     check_supported(backend=backend, n_devices=n_devices)
     if backend == "numpy":
         return hamming_weights_numpy(snp_data.codes, threshold)
-    device = resolve_device(device)
+    device = resolve_devices(device, n_devices)[0]
     block = fast_block_size(snp_data.nsnp, max_blk_sz)
     ranked = stratify(
         snp_data.codes, snp_data.acgtn_table, snp_data.pos, snp_data.r, block

@@ -3,7 +3,8 @@ R/computePairwiseMI.R:46-145 + per-block `perform_MI_computation_ACGTN`,
 R/computePairwiseMI.R:167-386).
 
 backends "spmd" and "fast" are one sweep (`parallel/spmd_sweep.blk5_sweep`):
-the r-stratified tiles run on one device through `FastTileRunner`,
+the r-stratified tiles run on one or more devices and processes through
+`FastTileRunner`,
 dispatched `pipeline_depth` ahead of the host emission and fed from a
 slab cache whose pool a device budget bounds (parallel/slabs.py); with
 `sr_reduce` "auto" (when the SR table fits) or "device" the SR background
@@ -287,7 +288,13 @@ class FastTileRunner:
     A failed LR certificate takes the boosted retry and then the full
     tile (spmd_sweep.recover_lr); repeated saturation (4 fallbacks, and
     at least as many as tiles that succeeded) demotes the runner to full
-    transfers.  Outputs do not depend on the transfer mode."""
+    transfers.  Outputs do not depend on the transfer mode.
+
+    Several local devices (`devices`, the JAX runner's `devices=`): each
+    is a lane with its own slab cache and device inputs; `dispatch` sends
+    a tile to the lane it is given, else round-robin, and `finish` runs
+    its retry or fallback on the same lane.  Results do not depend on the
+    lane."""
 
     def __init__(
         self,
@@ -308,6 +315,7 @@ class FastTileRunner:
         topk_cap: int = 1 << 18,
         sr_counts: Optional[np.ndarray] = None,
         device="cuda",
+        devices: Optional[List[torch.device]] = None,
     ):
         self.ranked = ranked
         self.paint_sorted = paint_sorted
@@ -323,12 +331,16 @@ class FastTileRunner:
             if lr_links_approx is None
             else max(0.0, 1.0 - lr_retain_links / lr_links_approx)
         )
-        self.cache = SlabCache(ranked.rank_codes, ranked.block, max_slabs,
-                               device=device)
-        self.dev = device_inputs(ranked, valid, np.asarray(hdw, np.float64),
-                                 neff, device,
-                                 paint_sorted if keep_sr else None,
-                                 codes=self.cache.pool)
+        self.caches, self.devs = [], []
+        for d in devices or [device]:
+            cache = SlabCache(ranked.rank_codes, ranked.block, max_slabs, d)
+            self.caches.append(cache)
+            self.devs.append(device_inputs(
+                ranked, valid, np.asarray(hdw, np.float64), neff, d,
+                paint_sorted if keep_sr else None, codes=cache.pool,
+            ))
+        self.cache, self.dev = self.caches[0], self.devs[0]  # lane 0
+        self._rr = 0  # round-robin cursor
         self.K, self.k_row = extract_dims(ranked.block, self.lr_prob,
                                           k_max=topk_cap)
         self.sr_counts = (sr_pair_counts(ranked, valid, g, sr_dist)
@@ -350,15 +362,18 @@ class FastTileRunner:
         return (int(rk.block_rmax[bi]), int(rk.block_rmax[bj]),
                 bool(rk.block_pure[bi]) and bool(rk.block_pure[bj]))
 
-    def _cols(self, bi: int, bj: int) -> Tuple[int, int]:
-        return self.cache.get(bi), self.cache.get(bj)
+    def _cols(self, bi: int, bj: int, lane: int = 0) -> Tuple[int, int]:
+        cache = self.caches[lane]
+        return cache.get(bi), cache.get(bj)
 
-    def pin_panel(self, rows) -> None:
-        self.cache.unpin()
-        self.cache.pin(rows)
+    def pin_panel(self, rows, lane: int) -> None:
+        """Pin a panel's row slabs in one lane's cache."""
+        self.caches[lane].unpin()
+        self.caches[lane].pin(rows)
 
     def unpin_all(self) -> None:
-        self.cache.unpin()
+        for c in self.caches:
+            c.unpin()
 
     def _emit_kw(self, bi: int, bj: int, lr_rows_sink: Callable) -> dict:
         return tile_emit_kw(
@@ -373,36 +388,42 @@ class FastTileRunner:
         emit_sr_pairs(sr_idx, sr_vals, **self._emit_kw(bi, bj, None))
 
     # -- dispatch: queue device work, do NOT wait for it ----------------
-    def dispatch(self, bi: int, bj: int) -> dict:
+    def dispatch(self, bi: int, bj: int, lane: Optional[int] = None) -> dict:
+        if lane is None:
+            lane = self._rr % len(self.devs)
+            self._rr += 1
         with annotate("fast_dispatch"):
-            return self._dispatch(bi, bj)
+            return self._dispatch(bi, bj, lane)
 
-    def _dispatch(self, bi: int, bj: int) -> dict:
-        cols = self._cols(bi, bj)
+    def _dispatch(self, bi: int, bj: int, lane: int) -> dict:
+        cols = self._cols(bi, bj, lane)
+        dev = self.devs[lane]
         mode = self._mode()
         Rf, Rt, pure = self._bucket(bi, bj)
         B = self.ranked.block
         if mode == "extract":
             p = dispatch_extract(
-                self.dev, bi, bj, block=B, sr_dist=int(self.sr_dist),
+                dev, bi, bj, block=B, sr_dist=int(self.sr_dist),
                 g=int(self.g), K=self.K, k_row=self.k_row,
                 prob=1.0 if self.lr_prob is None else self.lr_prob,
                 Rf=Rf, Rt=Rt, pure=pure, keep_sr=self.keep_sr,
                 n_sr=int(self.sr_counts[bi, bj]), cols=cols,
             )
-            return dict(kind="extract", bi=bi, bj=bj, p=p)
-        mi = tile_mi(self.dev, bi, bj, B, Rf, Rt, pure, cols)
+            return dict(kind="extract", bi=bi, bj=bj, p=p, lane=lane)
+        mi = tile_mi(dev, bi, bj, B, Rf, Rt, pure, cols)
         if mode == "summary":
-            out = self._dispatch_summary(bi, bj, mi)
+            out = self._dispatch_summary(bi, bj, mi, dev)
         else:
             out = dict(kind="full", bi=bi, bj=bj, mi=to_host(mi))
+        out["lane"] = lane
         if mi.device.type == "cuda":
             out["event"] = torch.cuda.Event()
             out["event"].record()
         return out
 
-    def _dispatch_summary(self, bi: int, bj: int, mi: torch.Tensor) -> dict:
-        rk, dev, B, g = self.ranked, self.dev, self.ranked.block, self.g
+    def _dispatch_summary(self, bi: int, bj: int, mi: torch.Tensor,
+                          dev) -> dict:
+        rk, B, g = self.ranked, self.ranked.block, self.g
         f_sl = slice(bi * B, (bi + 1) * B)
         t_sl = slice(bj * B, (bj + 1) * B)
         pos_f, pos_t = rk.pos[f_sl], rk.pos[t_sl]
@@ -453,7 +474,8 @@ class FastTileRunner:
             return self._finish(pending, lr_rows_sink)
 
     def _finish(self, pending: dict, lr_rows_sink: Optional[Callable]):
-        bi, bj = pending["bi"], pending["bj"]
+        bi, bj, lane = pending["bi"], pending["bj"], pending["lane"]
+        dev = self.devs[lane]
         skip_lr = lr_rows_sink is None
         kw = self._emit_kw(bi, bj, lr_rows_sink or (lambda *cols: None))
         if pending["kind"] == "extract":
@@ -470,9 +492,10 @@ class FastTileRunner:
                 return record
             # the LR certificate failed: redo only the LR side
             retried, fell_back = recover_lr(
-                self.dev, self.ranked, self.valid, self.paint_sorted, res,
+                dev, self.ranked, self.valid, self.paint_sorted, res,
                 bi, bj, g=self.g, sr_dist=self.sr_dist, lr_prob=self.lr_prob,
-                K=self.K, k_row=self.k_row, emit_kw=kw, cols=self._cols(bi, bj),
+                K=self.K, k_row=self.k_row, emit_kw=kw,
+                cols=self._cols(bi, bj, lane),
             )
             self.retries += retried
             if fell_back:
@@ -495,9 +518,9 @@ class FastTileRunner:
         # saturated top-K: the exact full tile (synchronous)
         self._note_fallback()
         return fallback_full_tile(
-            self.dev, self.ranked, self.valid, self.paint_sorted, bi, bj,
+            dev, self.ranked, self.valid, self.paint_sorted, bi, bj,
             self.g, self.sr_dist, self.lr_prob, kw["lr_rows_sink"],
-            cols=self._cols(bi, bj),
+            cols=self._cols(bi, bj, lane),
         )
 
     def _note_fallback(self) -> None:
@@ -689,7 +712,9 @@ def perform_mi_computation(
     device_budget_bytes bounds the slab pool of backends "spmd" and
     "fast" (by default the card's memory; under it the slabs stream,
     parallel/slabs.py); pipeline_depth is how many of their tiles are
-    dispatched ahead of the host emission.  checkpoint_dir resumes an
+    dispatched ahead of the host emission.  n_devices and the processes
+    of `torch.distributed` shard their tiles (`spmd_sweep.blk5_sweep`);
+    the compat backends run on one device.  checkpoint_dir resumes an
     interrupted sweep (module docstring).  phase_timings, if given a
     dict, is filled with the wall-clock split (sweep / background fit /
     aracne / sr write, plus the sweep's tile stats under "spmd" or
@@ -818,6 +843,7 @@ def perform_mi_computation(
                                 if checkpoint_dir else None),
                 device_budget_bytes=device_budget_bytes,
                 pipeline_depth=pipeline_depth,
+                n_devices=n_devices,
             )
             if phase_timings is not None:
                 phase_timings[backend] = stats

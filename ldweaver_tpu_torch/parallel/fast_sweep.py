@@ -29,6 +29,10 @@ top-k 32 tiles at a time.
 (2, 2, pure) tiles wider than 1024 columns go through kernel K2
 (ops/fused_tile.py: tile, LR mask and 128-column chunk max in one pass);
 every other tile through K1, the mask in torch ops and `tile_lr_topk`.
+Over several local devices or processes (`n_devices`, parallel/
+multihost.py) each shard sweeps a contiguous range of the tiles and the
+host merges the shards' top-k with the one-shard tie order
+(`_fast_lr_topk_sharded`).
 Top-k keeps the lowest index among equal values, as `lax.top_k` does
 (stable sorts), and buckets are visited in the JAX package's order, so the
 merge breaks ties as it does.
@@ -44,7 +48,7 @@ import torch
 
 from ldweaver_tpu_torch.ops.fused_tile import CHUNK, chunk_max, fused_tile_stage1
 from ldweaver_tpu_torch.ops.rank_mi import N_TERMS, rank_mi_tile
-from ldweaver_tpu_torch.support import check_supported, resolve_device
+from ldweaver_tpu_torch.support import resolve_devices
 
 
 # --------------------------------------------------------------------------
@@ -263,23 +267,69 @@ def tile_lr_topk(masked, block_f: int, block_t: int, topk: int):
 
 
 @dataclasses.dataclass
+class SweepLane:
+    """One local device of the LR-only sweep: the stratified rank codes
+    and per-site arrays there (spmd_sweep.DeviceInputs; when streaming,
+    its codes are the pool of `slab_cache`) and the allele-rank marginals
+    of every block."""
+
+    dev: object  # spmd_sweep.DeviceInputs
+    marg: torch.Tensor  # [nb, 5, block] f32 weighted rank counts
+    slab_cache: object = None  # slabs.SlabCache when streaming
+
+
+@dataclasses.dataclass
 class FastSweepState:
-    """One-time preparation of the LR-only sweep on one device: the
-    stratified rank codes and per-site arrays there
-    (spmd_sweep.DeviceInputs; when streaming, its codes are the pool of
-    `slab_cache`), the allele-rank marginals of every block, and the
-    block pairs bucketed by (Rf, Rt, both-blocks-pure).  Prepare once,
-    sweep many."""
+    """One-time preparation of the LR-only sweep: one `SweepLane` a local
+    device and the block pairs bucketed by (Rf, Rt, both-blocks-pure).
+    Prepare once, sweep many."""
 
     ranked: RankedSnps
     buckets: Dict[Tuple[int, int, bool], List[Tuple[int, int]]]
-    dev: object  # spmd_sweep.DeviceInputs
-    marg: torch.Tensor  # [nb, 5, block] f32 weighted rank counts
+    lanes: List[SweepLane]
     block: int
     g: int
     streaming: bool = False
-    slab_cache: object = None  # slabs.SlabCache when streaming
     panel: int = 0
+
+    @property
+    def dev(self):
+        return self.lanes[0].dev
+
+    @property
+    def marg(self) -> torch.Tensor:
+        return self.lanes[0].marg
+
+    @property
+    def slab_cache(self):
+        return self.lanes[0].slab_cache
+
+
+def _prepare_lane(ranked: RankedSnps, valid: np.ndarray, hdw: np.ndarray,
+                  neff: float, device, max_slabs: Optional[int],
+                  streaming: bool) -> SweepLane:
+    from ldweaver_tpu_torch.parallel.slabs import SlabCache
+    from ldweaver_tpu_torch.parallel.spmd_sweep import device_inputs
+
+    block = ranked.block
+    nseq = ranked.rank_codes.shape[0]
+    nb = ranked.rank_codes.shape[1] // block
+    if not streaming:
+        dev = device_inputs(ranked, valid, hdw, neff, device)
+        return SweepLane(dev=dev, marg=torch.stack([
+            rank_marginals(dev.codes, i * block, block, dev.w32, 5)
+            for i in range(nb)
+        ]))
+    cache = SlabCache(ranked.rank_codes, block, max_slabs, device)
+    dev = device_inputs(ranked, valid, hdw, neff, device, codes=cache.pool)
+    # each block's marginals from a [nseq, block] copy of its slab: the
+    # same values as from the resident tensor
+    tmp = torch.empty((nseq, block), dtype=torch.uint8, device=device)
+    margs = []
+    for i in range(nb):
+        cache.write_slab(i, tmp)
+        margs.append(rank_marginals(tmp, 0, block, dev.w32, 5))
+    return SweepLane(dev=dev, marg=torch.stack(margs), slab_cache=cache)
 
 
 def prepare_fast_sweep(
@@ -290,20 +340,18 @@ def prepare_fast_sweep(
     hbm_budget_bytes: Optional[int] = None,
     device="cuda",
 ) -> FastSweepState:
-    """Rank-encode + stratify + move the SNP tensor to `device`.
+    """Rank-encode + stratify + move the SNP tensor to each local device
+    (`support.resolve_devices(device, n_devices)`).
 
     If the rank codes exceed 60% of `hbm_budget_bytes` (by default the
     card's memory), the sweep streams them through a slab cache in panel
     order (slabs.plan_budget): the device holds only the pool, and the
-    marginals are computed slab by slab here.  `n_devices > 1` raises
-    NotImplementedError (ROADMAP.md item 10)."""
-    from ldweaver_tpu_torch.parallel.slabs import SlabCache, auto_budget, plan_budget
-    from ldweaver_tpu_torch.parallel.spmd_sweep import device_inputs
+    marginals are computed slab by slab here."""
+    from ldweaver_tpu_torch.parallel.slabs import auto_budget, plan_budget
 
-    check_supported(n_devices=n_devices)
-    device = resolve_device(device)
+    devices = resolve_devices(device, n_devices)
     if hbm_budget_bytes is None:
-        hbm_budget_bytes = auto_budget(device)
+        hbm_budget_bytes = auto_budget(devices[0])
     ranked = stratify(
         snp_data.codes, snp_data.acgtn_table, snp_data.pos, snp_data.r, block
     )
@@ -324,28 +372,11 @@ def prepare_fast_sweep(
     neff = np.asarray(hdw, np.float64).sum()
     streaming, max_slabs, panel = plan_budget(snp_data.nseq, block, nb,
                                               hbm_budget_bytes)
-    cache = None
-    if streaming:
-        cache = SlabCache(ranked.rank_codes, block, max_slabs, device=device)
-        dev = device_inputs(ranked, valid, hdw, neff, device, codes=cache.pool)
-        # each block's marginals from a [nseq, block] copy of its slab: the
-        # same values as from the resident tensor
-        tmp = torch.empty((snp_data.nseq, block), dtype=torch.uint8,
-                          device=device)
-        margs = []
-        for i in range(nb):
-            cache.write_slab(i, tmp)
-            margs.append(rank_marginals(tmp, 0, block, dev.w32, 5))
-        marg = torch.stack(margs)
-    else:
-        dev = device_inputs(ranked, valid, hdw, neff, device)
-        marg = torch.stack([
-            rank_marginals(dev.codes, i * block, block, dev.w32, 5)
-            for i in range(nb)
-        ])
+    lanes = [_prepare_lane(ranked, valid, hdw, neff, d, max_slabs, streaming)
+             for d in devices]
     return FastSweepState(
-        ranked=ranked, buckets=buckets, dev=dev, marg=marg, block=block,
-        g=snp_data.g, streaming=streaming, slab_cache=cache, panel=panel,
+        ranked=ranked, buckets=buckets, lanes=lanes, block=block,
+        g=snp_data.g, streaming=streaming, panel=panel,
     )
 
 
@@ -357,11 +388,13 @@ def uses_fused_tile(key: Tuple[int, int, bool], block: int) -> bool:
 
 def _tile_candidates(state: FastSweepState, bi: int, bj: int,
                      key: Tuple[int, int, bool], sr_dist: int, topk: int,
-                     cols: Optional[Tuple[int, int]] = None):
-    """One tile's LR top-k (vals, flat in-tile idx), the scan body of
-    `_build_bucket_sweep` (fast_sweep.py:432-464).  `cols` are the code
-    columns of the two blocks in a slab pool (by default their own)."""
-    dev, B, g = state.dev, state.block, int(state.g)
+                     cols: Optional[Tuple[int, int]] = None, lane: int = 0):
+    """One tile's LR top-k (vals, flat in-tile idx) on one lane, the scan
+    body of `_build_bucket_sweep` (fast_sweep.py:432-464).  `cols` are the
+    code columns of the two blocks in a slab pool (by default their
+    own)."""
+    dev, marg = state.lanes[lane].dev, state.lanes[lane].marg
+    B, g = state.block, int(state.g)
     Rf, Rt, pure = key
     fs, ts = bi * B, bj * B
     cf, ct = cols if cols is not None else (fs, ts)
@@ -369,14 +402,14 @@ def _tile_candidates(state: FastSweepState, bi: int, bj: int,
     val_f, val_t = dev.valid[fs : fs + B], dev.valid[ts : ts + B]
     if uses_fused_tile(key, B):
         c_vals, c_cols = fused_tile_stage1(
-            dev.codes, cf, ct, B, B, dev.wparts, state.marg[bi, :2],
-            state.marg[bj, :2], pos_f, pos_t, val_f, val_t, dev.neff,
+            dev.codes, cf, ct, B, B, dev.wparts, marg[bi, :2],
+            marg[bj, :2], pos_f, pos_t, val_f, val_t, dev.neff,
             bi == bj, g=g, sr_dist=sr_dist,
         )
         return chunk_topk(c_vals, c_cols, B, topk)
     mi = rank_mi_tile(
-        dev.codes, cf, ct, B, B, dev.wparts, state.marg[bi, :Rf],
-        state.marg[bj, :Rt], dev.r[fs : fs + B], dev.r[ts : ts + B], dev.neff,
+        dev.codes, cf, ct, B, B, dev.wparts, marg[bi, :Rf],
+        marg[bj, :Rt], dev.r[fs : fs + B], dev.r[ts : ts + B], dev.neff,
         Rf, Rt, pure,
     )
     _, lr_ok = tile_masks(pos_f, pos_t, val_f, val_t, bi == bj, g, sr_dist)
@@ -399,11 +432,17 @@ def fast_lr_topk(
     the port's kernels always sum the three bf16 weight terms.
 
     Pass `state` from prepare_fast_sweep to skip the one-time host prep
-    and transfer (e.g. when sweeping repeatedly or timing the sweep)."""
+    and transfer (e.g. when sweeping repeatedly or timing the sweep).
+    Over several shards (local devices of the state, processes of
+    `torch.distributed`) `_fast_lr_topk_sharded` gives the same top-k."""
+    from ldweaver_tpu_torch.parallel.multihost import process_count
+
     if state is None:
         state = prepare_fast_sweep(
             snp_data, hdw, block, n_devices, hbm_budget_bytes, device
         )
+    if len(state.lanes) * process_count() > 1:
+        return _fast_lr_topk_sharded(state, int(sr_dist), topk)
     if state.streaming:
         return _fast_lr_topk_streaming(state, int(sr_dist), topk)
     B = state.block
@@ -512,3 +551,92 @@ def _fast_lr_topk_streaming(state: FastSweepState, sr_dist: int, topk: int,
     pos1 = ranked.pos[meta[mt, 1] * B + mx % B]
     order = np.argsort(-mv, kind="stable")
     return pos1[order], pos2[order], mv[order]
+
+
+def _fast_lr_topk_sharded(state: FastSweepState, sr_dist: int, topk: int,
+                          merge_chunk: int = 32):
+    """The LR-only sweep over several shards: each local lane and process
+    sweeps a contiguous range of the canonical tile list
+    (`multihost.shard_ranges`), the lanes taking tiles in turn, and folds
+    its tiles' top-k into a running top-k on its device every
+    `merge_chunk` tiles; the processes gather their lanes' top-k, and the
+    host merges them by (MI descending, tie key ascending).  The tie key
+    is the tile's place in the one-shard visiting order (the buckets'
+    order when resident, the panel order when streaming) and the
+    candidate's place in its tile's top-k, the order in which the
+    one-shard sweep breaks ties: the merged top-k equals the one-shard
+    top-k in pairs and order."""
+    from ldweaver_tpu_torch.parallel import multihost
+    from ldweaver_tpu_torch.parallel.slabs import panel_pair_order
+
+    ranked, B, panel = state.ranked, state.block, state.panel
+    nb = ranked.rank_codes.shape[1] // B
+    L = len(state.lanes)
+    world, rank = multihost.process_count(), multihost.process_index()
+    k_each = min(topk, B * B)
+    if state.streaming:
+        order = list(panel_pair_order(nb, panel))
+    else:
+        order = [t for _, plist in sorted(state.buckets.items(),
+                                          key=lambda kv: -len(kv[1]))
+                 for t in plist]
+    ordinal = {t: i for i, t in enumerate(order)}
+    canonical = list(panel_pair_order(nb, nb))
+    ranges = multihost.shard_ranges(len(canonical), world * L)
+    lane_tiles = [sorted(canonical[slice(*ranges[rank * L + l])],
+                         key=ordinal.__getitem__) for l in range(L)]
+    best = []
+    for lane in state.lanes:
+        d = lane.dev.codes.device
+        best.append([torch.full((topk,), float("-inf"), device=d),
+                     torch.zeros((topk,), dtype=torch.int64, device=d),
+                     torch.zeros((topk,), dtype=torch.int32, device=d)])
+    pend: List[list] = [[] for _ in range(L)]
+
+    def flush(l: int) -> None:
+        if not pend[l]:
+            return
+        cat = [torch.cat([best[l][k]] + [p[k] for p in pend[l]]) for k in range(3)]
+        v, sel = top_k(cat[0], topk)
+        best[l] = [v, cat[1][sel], cat[2][sel]]
+        pend[l].clear()
+
+    cur_panel = [-1] * L
+    for k in range(max(map(len, lane_tiles))):
+        for l in range(L):
+            if k >= len(lane_tiles[l]):
+                continue
+            bi, bj = lane_tiles[l][k]
+            cache = state.lanes[l].slab_cache
+            cols = None
+            if cache is not None:
+                if bi // panel != cur_panel[l]:
+                    cur_panel[l] = bi // panel
+                    cache.unpin()
+                    cache.pin(range(cur_panel[l] * panel,
+                                    min((cur_panel[l] + 1) * panel, nb)))
+                cols = (cache.get(bi), cache.get(bj))
+            key = (int(ranked.block_rmax[bi]), int(ranked.block_rmax[bj]),
+                   bool(ranked.block_pure[bi]) and bool(ranked.block_pure[bj]))
+            vals, idx = _tile_candidates(state, bi, bj, key, sr_dist, k_each,
+                                         cols, lane=l)
+            tie = (torch.arange(vals.numel(), device=vals.device)
+                   + ordinal[bi, bj] * k_each)
+            pend[l].append([vals, tie, idx.to(torch.int32)])
+            if len(pend[l]) >= merge_chunk:
+                flush(l)
+    for l in range(L):
+        flush(l)
+        if state.lanes[l].slab_cache is not None:
+            state.lanes[l].slab_cache.unpin()
+    local = [tuple(t.cpu().numpy() for t in b) for b in best]
+    parts = [p for r in multihost.allgather_object(local) for p in r]
+    v, tie, x = (np.concatenate([p[k] for p in parts]) for k in range(3))
+    o = np.lexsort((tie, -v.astype(np.float64)))[:topk]
+    v, tie, x = v[o], tie[o], x[o].astype(np.int64)
+    keep = np.isfinite(v)
+    v, tie, x = v[keep], tie[keep], x[keep]
+    tiles = np.asarray(order, np.int64).reshape(-1, 2)[tie // k_each]
+    pos2 = ranked.pos[tiles[:, 0] * B + x // B]
+    pos1 = ranked.pos[tiles[:, 1] * B + x % B]
+    return pos1, pos2, v

@@ -58,7 +58,7 @@ class SlabCache:
     `pin` protects a working set (the panel rows) from eviction."""
 
     def __init__(self, rank_codes: np.ndarray, block: int,
-                 max_slabs: Optional[int] = None, device="cpu"):
+                 max_slabs: Optional[int], device):
         self.rank_codes = rank_codes  # [nseq, nsnp_padded] host
         self.block = block
         self.nb = rank_codes.shape[1] // block

@@ -1,5 +1,5 @@
-"""BLK5 link extraction on one GPU: the port of the JAX package's SPMD
-sweep (parallel/spmd_sweep.py there).
+"""BLK5 link extraction on one or more devices and processes: the port of
+the JAX package's SPMD sweep (parallel/spmd_sweep.py there).
 
 Per tile of the r-stratified block-pair grid, `dispatch_extract` queues
 the MI tile (kernel K1) and its extraction on the device without waiting
@@ -22,10 +22,14 @@ certificate fails with a boosted-capacity retry and, past that, an exact
 full-tile extraction.  With the on-device SR reduction (`sr_reduce`
 "auto" when the table fits, or "device") every tile's SR pairs stay on
 the card and `parallel/sr_reduce.run_device_reduction` reduces them
-after the loop; otherwise they are copied to the host and emitted there,
-in the canonical `panel_pair_order(nb, nb)` tile order.  With a
-checkpoint directory the sweep resumes tile by tile.  The host helpers
-(SR counts, top-K sizing, emission) are copies of the JAX package's.
+after the loop; with several shards "part" leaves them on their shard
+(`sr_reduce.run_part_reduction`); otherwise they are copied to the host
+and emitted there.  Links are emitted in the canonical
+`panel_pair_order(nb, nb)` tile order.  Several local devices and
+processes (parallel/multihost.py) each sweep a contiguous range of that
+order.  With a checkpoint directory the sweep resumes tile by tile.  The
+host helpers (SR counts, top-K sizing, emission) are copies of the JAX
+package's.
 """
 
 from __future__ import annotations
@@ -559,7 +563,7 @@ def tile_emit_kw(ranked: RankedSnps, paint_sorted: np.ndarray, bi: int,
 
 
 # --------------------------------------------------------------------------
-# The single-GPU BLK5 driver
+# The BLK5 driver: one or more shards
 # --------------------------------------------------------------------------
 def blk5_sweep(
     snp_data,
@@ -580,24 +584,33 @@ def blk5_sweep(
     checkpoint_dir: Optional[str] = None,
     device_budget_bytes: Optional[int] = None,
     pipeline_depth: int = 4,
+    n_devices: Optional[int] = None,
 ) -> Tuple[Dict[str, float], Optional[DeviceSrReduction]]:
-    """Run BLK5's sweep tile by tile on `device` (backends "spmd" and
-    "fast" alike) and emit links in the reference's order (row-major
-    inside a tile, f64 thresholds).  Returns (stats, DeviceSrReduction or
-    None).
+    """Run BLK5's sweep tile by tile (backends "spmd" and "fast" alike)
+    and emit links in the reference's order (row-major inside a tile, f64
+    thresholds).  Returns (stats, DeviceSrReduction or None).
 
-    The tiles go through a `core.sweep.FastTileRunner`: its slab pool
-    holds every block when the rank codes fit 60% of
-    `device_budget_bytes` (by default the card's memory), else the tiles
-    are visited in row panels and the slabs stream (parallel/slabs.py);
-    `pipeline_depth` tiles are dispatched ahead of the host emission.
-    LR rows come out in visiting order, SR pairs in the canonical
-    `panel_pair_order(nb, nb)` order whatever the panels.
+    Shards: the local devices (`support.resolve_devices(device,
+    n_devices)`) times the processes of `torch.distributed`
+    (parallel/multihost.py).  The canonical tile list
+    `panel_pair_order(nb, nb)` is cut into one contiguous range a shard;
+    each local shard is a lane of one `core.sweep.FastTileRunner`, whose
+    slab pool holds every block when the rank codes fit 60% of
+    `device_budget_bytes` (by default the card's memory), else the lane's
+    tiles are visited in row panels and the slabs stream
+    (parallel/slabs.py).  The lanes take tiles in turn, `pipeline_depth`
+    a lane dispatched ahead of the host emission.  Under several
+    processes every process gathers every tile's results at one fixed
+    point after its loop.  Every process then emits LR rows and SR pairs
+    tile by tile in the canonical order, so the TSVs are byte-identical
+    whatever the shards and the panels.
 
     `sr_reduce` selects where the SR background model's heavy pass runs
     (`sr_reduce.select_mode`): on the host, every SR pair is emitted into
-    `sr_links`; on the device, the pairs stay on the card, no SR pair is
-    emitted, and the caller finishes with
+    `sr_links`; on the device ("device": the gathered pairs on the first
+    local device; "part": each shard keeps its own and
+    `sr_reduce.run_part_reduction` reduces them by k2 range), no SR pair
+    is emitted and the caller finishes with
     `merge_and_sort_sr_links_from_candidates` on the returned reduction
     (TSVs byte-identical to the host mode).
 
@@ -606,12 +619,19 @@ def blk5_sweep(
     rows and, in host SR mode, its SR pairs (i32 flat index, f32 MI) are
     written atomically, keyed by a manifest of the plan, the device type
     and a checksum of the data.  On a rerun a done tile replays from disk
-    without a dispatch in host mode; in device mode it replays its LR rows
-    and is dispatched again to rebuild its SR pairs on the card.
+    without a dispatch in host mode; in the device modes it replays its
+    LR rows and is dispatched again to rebuild its SR pairs on the card.
+    Under several processes there is no checkpoint, as in the JAX package:
+    one process's disk says nothing of the others'.
 
-    On a CUDA device the sweep resets the card's peak memory statistic
-    and reports its own peaks (`peak_tiles_bytes` after the tiles,
-    `peak_bytes` after the SR reduction)."""
+    On CUDA devices the sweep resets the peak memory statistic of its
+    local cards and reports its own peaks (`peak_tiles_bytes` after the
+    tiles, `peak_bytes` after the SR reduction; the largest card of this
+    process).  `emit_s` is the emission in canonical order (LR rows to
+    the sink, SR pairs to `sr_links` or the device segments).  Stats also
+    hold `shards`, `rank`, `gather_s` and
+    `gather_bytes` (the gathers of this process) and `k1_launches` (the
+    K1 launches of this process)."""
     from collections import deque
 
     from ldweaver_tpu_torch.core.sweep import (
@@ -621,13 +641,21 @@ def blk5_sweep(
         replay_lr_rows,
         tile_payload,
     )
+    from ldweaver_tpu_torch.ops.rank_mi import K1
+    from ldweaver_tpu_torch.parallel import multihost
     from ldweaver_tpu_torch.parallel.slabs import (
         auto_budget,
         panel_pair_order,
         plan_budget,
     )
+    from ldweaver_tpu_torch.parallel.sr_reduce import run_part_reduction, sr_budget
+    from ldweaver_tpu_torch.support import resolve_devices
 
-    device = torch.device(device)
+    devices = resolve_devices(device, n_devices)
+    device = devices[0]
+    L = len(devices)
+    world, rank = multihost.process_count(), multihost.process_index()
+    nsh = world * L
     ranked = stratify(
         snp_data.codes, snp_data.acgtn_table, snp_data.pos, snp_data.r, block
     )
@@ -642,35 +670,45 @@ def blk5_sweep(
         lr_links_approx = None
     sr_counts = sr_pair_counts(ranked, valid, g, sr_dist)
     total_sr = int(sr_counts.sum())
-    device_reduce = select_mode(sr_reduce, total_sr, g, device,
-                                verbose) == "device"
+    canonical = list(panel_pair_order(nb, nb))
+    shard_tiles = [canonical[lo:hi]
+                   for lo, hi in multihost.shard_ranges(len(canonical), nsh)]
+    lane_of = {t: l for l in range(L) for t in shard_tiles[rank * L + l]}
+    mode = select_mode(
+        sr_reduce, total_sr, g, device, verbose,
+        shard_sr=[sum(int(sr_counts[t]) for t in tiles) for tiles in shard_tiles],
+    )
+    keep_sr = mode != "host"
     if device_budget_bytes is None:
         device_budget_bytes = auto_budget(device)
     streaming, max_slabs, panel = plan_budget(snp_data.nseq, B, nb,
                                               device_budget_bytes)
     cuda = device.type == "cuda"
     if cuda:
-        torch.cuda.reset_peak_memory_stats(device)
+        for d in set(devices):
+            torch.cuda.reset_peak_memory_stats(d)
+    k1_before = K1.launches
     runner = FastTileRunner(
         ranked, paint_sorted, valid, hdw, neff, g, sr_dist, lr_retain_links,
         lr_links_approx, sr_links, topk_cap=topk_cap, max_slabs=max_slabs,
-        keep_sr=device_reduce, sr_counts=sr_counts, device=device,
+        keep_sr=keep_sr, sr_counts=sr_counts, device=device, devices=devices,
     )
     depth = max(1, int(pipeline_depth))
     stats = dict(tiles=0, retries=0, fallbacks=0, demoted=False, sr_pairs=0,
                  K=runner.K, k_row=runner.k_row, block=B,
-                 sr_reduce="device" if device_reduce else "host",
+                 sr_reduce={"part": "device-part"}.get(mode, mode),
                  streaming=streaming, max_slabs=max_slabs, panel=panel,
                  depth=depth, pool_bytes=runner.cache.pool.numel(), uploads=0,
-                 hits=0, dispatch_s=0.0, finish_s=0.0, sr_emit_s=0.0,
-                 ckpt_s=0.0, ckpt_hits=0)
+                 hits=0, dispatch_s=0.0, finish_s=0.0, emit_s=0.0,
+                 ckpt_s=0.0, ckpt_hits=0, shards=nsh, rank=rank, gather_s=0.0,
+                 gather_bytes=0)
     ckpt = None
-    if checkpoint_dir:
+    if checkpoint_dir and world == 1:
         t0 = time.perf_counter()
         plan = (
             snp_data.nsnp, snp_data.nseq, g, int(sr_dist),
             float(lr_retain_links), runner.lr_prob, B, runner.K, runner.k_row,
-            int(topk_cap), stats["sr_reduce"], device.type,
+            int(topk_cap), {"part": "device"}.get(mode, mode), device.type,
             data_crc(ranked.rank_codes, ranked.pos, ranked.r, paint_sorted,
                      np.asarray(hdw, np.float64)),
         )
@@ -678,68 +716,85 @@ def blk5_sweep(
         stats["ckpt_s"] += time.perf_counter() - t0
 
     def depth_limit() -> int:
-        """In-flight tile cap.  Extract-mode tiles hold O(P_sr + K) bytes,
-        but full-transfer tiles (post-demotion) each hold a B x B f32
-        output: under a streaming budget, clamp to what ~20% of the
-        budget holds (checked per tile: demotion can flip the mode)."""
+        """In-flight tile cap (`depth` a lane).  Extract-mode tiles hold
+        O(P_sr + K) bytes, but full-transfer tiles (post-demotion) each
+        hold a B x B f32 output: under a streaming budget, clamp to what
+        ~20% of the budget holds (checked per tile: demotion can flip the
+        mode)."""
         if not streaming or runner._mode() != "full":
-            return depth
+            return depth * L
         return min(depth, max(1, int(device_budget_bytes * 0.2 / (B * B * 4))))
 
     queue: deque = deque()
-    canonical = list(panel_pair_order(nb, nb))
-    sr_ready: dict = {}  # finished tiles' SR pairs, awaiting their turn
-    segs = []  # device mode: (bi, bj, sr_idx, sr_vals) in canonical order
+    ready: dict = {}  # finished tiles' (LR rows, SR pairs), awaiting their turn
+    # device modes: each lane's kept SR pairs (bi, bj, sr_idx, sr_vals) in
+    # canonical order ("device": all of them on lane 0)
+    segs: List[list] = [[] for _ in range(L)]
     n_emitted = 0
 
-    def finish_one():
+    def emit_ready():
+        """Emit the finished tiles that are next in the canonical order."""
         nonlocal n_emitted
+        t0 = time.perf_counter()
+        while n_emitted < len(canonical) and canonical[n_emitted] in ready:
+            ci, cj = canonical[n_emitted]
+            rows, sr = ready.pop((ci, cj))
+            for cols in rows:
+                lr_rows_sink(*cols)
+            if mode == "host":
+                runner.emit_sr(ci, cj, *sr)
+            elif sr is not None and len(sr[0]):
+                lane = lane_of[ci, cj] if mode == "part" else 0
+                segs[lane].append((ci, cj,
+                                   torch.as_tensor(sr[0], device=devices[lane]),
+                                   torch.as_tensor(sr[1], device=devices[lane])))
+            n_emitted += 1
+        stats["emit_s"] += time.perf_counter() - t0
+
+    def finish_one():
         bi, bj, pending, hit = queue.popleft()
+        rows: list = []  # the tile's LR rows, emitted in canonical order
+
+        def sink(*cols):
+            rows.append(tuple(np.asarray(c) for c in cols))
+
         t0 = time.perf_counter()
         if hit is not None:  # a checkpointed tile, replayed in its place
             if pending is None:
                 sr = (hit["sr_idx"], hit["sr_vals"])
-            else:  # device mode: the SR pairs come from the re-dispatch
+            else:  # device modes: the SR pairs come from the re-dispatch
                 sr = runner.finish(pending, None)
                 t1 = time.perf_counter()
                 stats["finish_s"] += t1 - t0
                 t0 = t1
-            replay_lr_rows(hit, lr_rows_sink)
+            replay_lr_rows(hit, sink)
             stats["ckpt_s"] += time.perf_counter() - t0
         else:
-            rows: list = []  # the tile's LR rows, for its checkpoint
-
-            def sink(*cols):
-                rows.append(tuple(np.asarray(c) for c in cols))
-                lr_rows_sink(*cols)
-
             sr = runner.finish(pending, sink)
             t1 = time.perf_counter()
             stats["finish_s"] += t1 - t0
             if ckpt is not None:
                 ckpt.save(f"spmd_{bi}_{bj}",
-                          tile_payload(None if device_reduce else sr, rows))
+                          tile_payload(None if keep_sr else sr, rows))
                 stats["ckpt_s"] += time.perf_counter() - t1
-        sr_ready[bi, bj] = sr
-        t0 = time.perf_counter()
-        while n_emitted < len(canonical) and canonical[n_emitted] in sr_ready:
-            ci, cj = canonical[n_emitted]
-            idx, vals = sr_ready.pop((ci, cj))
-            if not device_reduce:
-                runner.emit_sr(ci, cj, idx, vals)
-            elif len(idx):
-                segs.append((ci, cj, torch.as_tensor(idx, device=device),
-                             torch.as_tensor(vals, device=device)))
-            n_emitted += 1
-        stats["sr_emit_s"] += time.perf_counter() - t0
+        ready[bi, bj] = (rows, sr)
         stats["tiles"] += 1
+        if world == 1:
+            emit_ready()
 
-    cur_panel = -1
-    for bi, bj in panel_pair_order(nb, panel):
-        if bi // panel != cur_panel:
-            cur_panel = bi // panel
-            runner.pin_panel(range(cur_panel * panel,
-                                   min((cur_panel + 1) * panel, nb)))
+    # each lane's tiles in panel order, the lanes taking turns
+    lane_tiles = [[t for t in panel_pair_order(nb, panel) if lane_of.get(t) == l]
+                  for l in range(L)]
+    visit = [(l, t) for k in range(max(map(len, lane_tiles)))
+             for l in range(L) if k < len(lane_tiles[l])
+             for t in [lane_tiles[l][k]]]
+    cur_panel = [-1] * L
+    for lane, (bi, bj) in visit:
+        if bi // panel != cur_panel[lane]:
+            cur_panel[lane] = bi // panel
+            runner.pin_panel(range(cur_panel[lane] * panel,
+                                   min((cur_panel[lane] + 1) * panel, nb)),
+                             lane=lane)
         stats["sr_pairs"] += int(sr_counts[bi, bj])
         hit = None
         if ckpt is not None:
@@ -748,9 +803,9 @@ def blk5_sweep(
             stats["ckpt_s"] += time.perf_counter() - t0
             stats["ckpt_hits"] += hit is not None
         pending = None
-        if hit is None or device_reduce:
+        if hit is None or keep_sr:
             t0 = time.perf_counter()
-            pending = runner.dispatch(bi, bj)
+            pending = runner.dispatch(bi, bj, lane=lane)
             stats["dispatch_s"] += time.perf_counter() - t0
         queue.append((bi, bj, pending, hit))
         while len(queue) >= depth_limit():
@@ -758,33 +813,70 @@ def blk5_sweep(
     while queue:
         finish_one()
     runner.unpin_all()
+    gstats = multihost.GatherStats()
+    if world > 1:
+        # every process's tiles, at one fixed point: LR rows, and the SR
+        # pairs unless each shard reduces its own ("part")
+        def host_sr(sr):
+            if mode == "part":
+                return None
+            return tuple(np.asarray(x.cpu() if torch.is_tensor(x) else x)
+                         for x in sr)
+
+        local = {t: (rows, host_sr(sr)) for t, (rows, sr) in ready.items()}
+        for r, part in enumerate(multihost.allgather_object(local, gstats)):
+            if r != rank:
+                ready.update(part)
+        emit_ready()
+    if n_emitted != len(canonical):
+        raise RuntimeError(f"BLK5: {len(canonical) - n_emitted} tiles missing")
     stats.update(retries=runner.retries, fallbacks=runner.fallbacks,
-                 demoted=runner._demoted, uploads=runner.cache.uploads,
-                 hits=runner.cache.hits)
-    for k in ("dispatch_s", "finish_s", "sr_emit_s", "ckpt_s"):
+                 demoted=runner._demoted,
+                 uploads=sum(c.uploads for c in runner.caches),
+                 hits=sum(c.hits for c in runner.caches),
+                 k1_launches=K1.launches - k1_before)
+    if cuda:
+        stats["peak_tiles_bytes"] = max(torch.cuda.max_memory_allocated(d)
+                                        for d in set(devices))
+    reduction = None
+    red_kw = dict(ranked_pos=ranked.pos, paint_sorted=paint_sorted, B=B, nb=nb,
+                  g=int(g), sr_dist=int(sr_dist), nclust=len(sr_links),
+                  total_sr=total_sr)
+    if mode == "device":
+        reduction = run_device_reduction(
+            segs[0], runner.dev.pos, runner.dev.paint, **red_kw)
+    elif mode == "part":
+        pos_blocks = [ranked.pos[i * B : (i + 1) * B][valid[i * B : (i + 1) * B]]
+                      for i in range(nb)]
+        reduction = run_part_reduction(
+            segs, [d.pos for d in runner.devs], [d.paint for d in runner.devs],
+            shard_tiles=shard_tiles, first_shard=rank * L,
+            pos_blocks=pos_blocks,
+            part_budget_bytes=max(sr_budget(device) // 2, 64 << 20),
+            gather=(None if world == 1 else
+                    lambda obj: multihost.allgather_object(obj, gstats)),
+            **red_kw)
+    if reduction is not None:
+        stats.update(reduction.stats)
+    stats.update(gather_s=gstats.seconds, gather_bytes=gstats.nbytes)
+    for k in ("dispatch_s", "finish_s", "emit_s", "ckpt_s", "gather_s"):
         stats[k] = round(stats[k], 3)
     if cuda:
-        stats["peak_tiles_bytes"] = torch.cuda.max_memory_allocated(device)
-    reduction = None
-    if device_reduce:
-        reduction = run_device_reduction(
-            segs, runner.dev.pos, runner.dev.paint, ranked_pos=ranked.pos,
-            paint_sorted=paint_sorted, B=B, nb=nb, g=int(g),
-            sr_dist=int(sr_dist), nclust=len(sr_links), total_sr=total_sr,
-        )
-        stats.update(reduction.stats)
-    if cuda:
-        stats["peak_bytes"] = torch.cuda.max_memory_allocated(device)
+        stats["peak_bytes"] = max(torch.cuda.max_memory_allocated(d)
+                                  for d in set(devices))
     if verbose:
         print(
-            f"BLK5 sweep: {stats['tiles']} tiles on {device},"
-            f" {stats['sr_pairs']} sr pairs, {stats['retries']} retries,"
-            f" {stats['fallbacks']} fallbacks, SR reduction on the"
-            f" {stats['sr_reduce']}; slab cache {stats['uploads']} uploads,"
-            f" {stats['hits']} hits ({'streamed' if streaming else 'resident'},"
+            f"BLK5 sweep: {stats['tiles']} tiles on {L} local device(s)"
+            f" ({device}) of {nsh} shard(s), {stats['sr_pairs']} sr pairs,"
+            f" {stats['retries']} retries, {stats['fallbacks']} fallbacks, SR"
+            f" reduction {stats['sr_reduce']}; slab cache {stats['uploads']}"
+            f" uploads, {stats['hits']} hits"
+            f" ({'streamed' if streaming else 'resident'},"
             f" {max_slabs or nb} slots, panel {panel}); depth {depth}"
             + (f"; {stats['ckpt_hits']} tiles from checkpoints"
-               if ckpt is not None else ""),
+               if ckpt is not None else "")
+            + (f"; gathered {stats['gather_bytes']} bytes in"
+               f" {stats['gather_s']} s" if world > 1 else ""),
             flush=True,
         )
     return stats, reduction

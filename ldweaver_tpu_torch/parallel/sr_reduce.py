@@ -1,5 +1,6 @@
-"""On-device SR background reduction on one GPU: the port of the JAX
-package's single-device ("flat") path (parallel/sr_reduce.py there).
+"""On-device SR background reduction: the port of the JAX package's
+single-device ("flat") path and its grid-partitioned path over several
+shards ("part"; parallel/sr_reduce.py there).
 
 The SR background model (`core/background.py`, reference
 `mergeNsort_sr_links`, R/computePairwiseMI.R:400-495) needs two things
@@ -37,6 +38,10 @@ order (panel tile order, row-major within a tile), so the downstream f64
 reductions (`core/background.merge_and_sort_sr_links_from_candidates`)
 see the same value sequence as on the host path and the TSVs come out
 byte-identical.  The host helpers are copies of the JAX package's.
+
+Over several shards (local devices and processes) `run_part_reduction`
+leaves every shard's pairs where they are and splits pass 1 by ranges of
+the k2 grid (section "part" below), so no device holds the whole table.
 """
 
 from __future__ import annotations
@@ -44,7 +49,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
-from typing import Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -130,22 +135,22 @@ def flat_segments(segs: Sequence[Tuple[int, int, torch.Tensor, torch.Tensor]],
                      c2=paint.index_select(0, gj), gi=gi, gj=gj, live=live)
 
 
-def group_stats(flat: FlatLinks, sr_dist: int,
-                nclust: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """Pass 1: per-(cluster, k2) group count and the two order statistics
-    around rank floor((n-1)*0.95), as numpy [nclust, 2*sr_dist - 1]
-    arrays (i32 counts, f32 values).  Every link is sorted, non-members
-    and dead links under the _DEAD key, so empty groups gather the same
-    elements as the JAX package's two-key sort."""
-    dev = flat.mi.device
-    mono = mono_u32(flat.mi)
-    base = torch.where(flat.live, flat.k2, _DEAD).to(torch.int64)
-    grid = torch.arange(1, 2 * sr_dist, dtype=torch.int64, device=dev)
+def order_stats(base: torch.Tensor, mono: torch.Tensor, c1: torch.Tensor,
+                c2: torch.Tensor, lo: int, hi: int, nclust: int
+                ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Per-(cluster, k2) group count and the two order statistics around
+    rank floor((n-1)*0.95) for the keys k2 in [lo, hi), as numpy
+    [nclust, hi - lo] arrays (i32 counts, f32 values).  `base` is each
+    link's i64 key (_DEAD for dead links), `mono` its `mono_u32` MI.  Every
+    link is sorted, non-members under the _DEAD key, so empty groups
+    gather the same elements as the JAX package's two-key sort."""
+    dev = mono.device
+    grid = torch.arange(lo, hi, dtype=torch.int64, device=dev)
     lo_keys, hi_keys = grid << 32, (grid + 1) << 32
     F = base.numel()
     ns, xlo, xhi = [], [], []
     for c in range(1, nclust + 1):
-        member = (flat.c1 == c) | (flat.c2 == c)
+        member = (c1 == c) | (c2 == c)
         ks = torch.sort((torch.where(member, base, _DEAD) << 32) | mono).values
         starts = torch.searchsorted(ks, lo_keys)
         n = torch.searchsorted(ks, hi_keys) - starts
@@ -159,6 +164,15 @@ def group_stats(flat: FlatLinks, sr_dist: int,
         del ks
     return (torch.stack(ns).to(torch.int32).cpu().numpy(),
             torch.stack(xlo).cpu().numpy(), torch.stack(xhi).cpu().numpy())
+
+
+def group_stats(flat: FlatLinks, sr_dist: int,
+                nclust: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Pass 1: `order_stats` of every link over the whole grid
+    [1, 2*sr_dist), as numpy [nclust, 2*sr_dist - 1] arrays."""
+    base = torch.where(flat.live, flat.k2, _DEAD).to(torch.int64)
+    return order_stats(base, mono_u32(flat.mi), flat.c1, flat.c2, 1,
+                       2 * sr_dist, nclust)
 
 
 def candidates(flat: FlatLinks, T: np.ndarray, sr_dist: int,
@@ -286,49 +300,77 @@ def candidates_to_tables(
 
 
 # --------------------------------------------------------------------------
-# Mode selection and the entry point
+# Mode selection
 # --------------------------------------------------------------------------
-def select_mode(sr_reduce: str, total_sr: int, g: int, device,
-                verbose: bool = True) -> str:
-    """"device" or "host": where `blk5_sweep` reduces the SR table (the
-    JAX package's rules, spmd_sweep.py:1106-1165, on one device).  The
-    kept pairs take 8 bytes each (i32 index, f32 MI) against
-    LDW_SR_BUDGET or 0.35 of the card's memory (4 GiB without one).
-    g >= 2^30 would overflow the int32 distance key: always the host.
-    "auto" over budget warns and takes the host; "part" on one device is
-    "device" when it fits, else the host; "device" ignores the budget."""
+# Device bytes a kept SR pair costs its shard in the partitioned pass.
+# Resident: the shard's flat arrays, 25 bytes (k2, MI, c1, c2, gi, gj i32
+# and the live flag; the kept (i32 index, f32 MI) pairs are released once
+# flat).  On top, a range buffer of at most half the budget and its sort
+# temporaries.  Measured on an H100 80GB HBM3 (700 W) at 616 genomes x
+# 131,072 SNPs over two processes with a 1 GiB budget: peak 4.92 GB for
+# the larger shard's 101 M pairs, 48.6 bytes a pair (25 a pair more than
+# the smaller shard's 3.76 GB for 55 M).
+PART_BYTES_PER_PAIR = 49
+
+
+def sr_budget(device) -> int:
+    """The SR reduction's device byte budget: LDW_SR_BUDGET, else 0.35 of
+    the card's memory (4 GiB without one), as in the JAX package."""
     from ldweaver_tpu_torch.parallel.slabs import auto_budget
 
     env_budget = os.environ.get("LDW_SR_BUDGET")
     if env_budget:
-        budget = int(env_budget)
-    else:
-        cap = auto_budget(device)
-        budget = int(cap * 0.35) if cap else (4 << 30)
+        return int(env_budget)
+    cap = auto_budget(device)
+    return int(cap * 0.35) if cap else (4 << 30)
+
+
+def select_mode(sr_reduce: str, total_sr: int, g: int, device,
+                verbose: bool = True,
+                shard_sr: Optional[Sequence[int]] = None) -> str:
+    """"device", "part" or "host": where `blk5_sweep` reduces the SR table
+    (the JAX package's rules, spmd_sweep.py:1106-1165).  `shard_sr` holds
+    each shard's kept pairs (one shard by default).
+
+    The single-device reduction ("device") counts 8 bytes a kept pair (i32
+    index, f32 MI) against `sr_budget`; the partitioned one ("part", more
+    than one shard) counts PART_BYTES_PER_PAIR a pair of the largest
+    shard.  g >= 2^30 would overflow the int32 distance key: always the
+    host.  "device" ignores the budget; "part" is the partitioned pass
+    whenever there is more than one shard, and on one shard "device" when
+    it fits, else the host; "auto" takes "device", else "part", else warns
+    and takes the host."""
+    budget = sr_budget(device)
     sr_bytes = 8 * int(total_sr)
     fits = sr_bytes <= budget
+    nsh = len(shard_sr) if shard_sr is not None else 1
     if g >= 1 << 30:
         if sr_reduce in ("device", "part") and verbose:
             print(f"sr_reduce={sr_reduce!r} ignored: g >= 2^30 overflows the"
                   " int32 distance key; using the host path", flush=True)
         return "host"
-    if sr_reduce == "host":
-        return "host"
-    if sr_reduce == "device":
-        return "device"
-    mode = "device" if fits else "host"
-    if sr_reduce == "part":
-        if verbose or mode == "host":
-            print(f"sr_reduce='part' on one device: using the"
-                  f" {'device' if fits else 'HOST'} path instead (partitioning"
-                  " cannot reduce per-device residency without more devices).",
-                  flush=True)
-    elif mode == "host":  # auto
+    if sr_reduce in ("host", "device"):
+        return sr_reduce
+    if nsh > 1:
+        if sr_reduce == "part":
+            return "part"
+        part_fits = max(shard_sr) * PART_BYTES_PER_PAIR <= budget
+        mode = "device" if fits else ("part" if part_fits else "host")
+    else:
+        mode = "device" if fits else "host"
+        if sr_reduce == "part":
+            if verbose or mode == "host":
+                print(f"sr_reduce='part' on one device: using the"
+                      f" {'device' if fits else 'HOST'} path instead"
+                      " (partitioning cannot reduce per-device residency"
+                      " without more devices).", flush=True)
+            return mode
+    if mode == "host":
         print(f"WARNING: SR outputs ({sr_bytes / 1e9:.1f} GB) exceed the"
-              f" device budget ({budget / 1e9:.1f} GB): falling back to the"
-              " HOST SR reduction, which copies the full SR table to the host."
-              "  Raise LDW_SR_BUDGET to keep the reduction on the device.",
-              flush=True)
+              f" device budget ({budget / 1e9:.1f} GB) over {nsh} shard(s):"
+              " falling back to the HOST SR reduction, which copies the full"
+              " SR table to the host.  Add shards or raise LDW_SR_BUDGET to"
+              " keep the reduction on the device.", flush=True)
     return mode
 
 
@@ -376,6 +418,218 @@ def run_device_reduction(
 
     t0 = time.perf_counter()
     gi, gj, mi = candidates(flat, T, sr_dist, nclust)
+    count = int(gi.size)
+    stats["bg_cand_s"] = round(time.perf_counter() - t0, 3)
+    stats["cand_count"] = count
+    stats["cand_mb"] = round(12 * count / 1e6, 1)
+
+    t0 = time.perf_counter()
+    tables = candidates_to_tables(
+        gi, gj, mi, count, ranked_pos, paint_sorted, g, B, nb, nclust
+    )
+    stats["bg_order_s"] = round(time.perf_counter() - t0, 3)
+    return DeviceSrReduction(fits=fits, tables=tables, stats=stats)
+
+
+# --------------------------------------------------------------------------
+# The grid-partitioned reduction over several shards ("part")
+# --------------------------------------------------------------------------
+# Each shard keeps the SR pairs of its own tiles.  The k2 grid
+# [1, 2*sr_dist) is cut into ranges sized from exact host-side counts
+# (every link's distance key follows from the positions), and for each
+# range every shard compacts its live links in the range into a record
+# buffer of the range's cap; the buffers of all shards, gathered in shard
+# order, give every process the range's group multisets, and the same sort
+# and gathers as pass 1 give their order statistics.  The ranges are
+# disjoint and cover the grid, so the fits equal the single-device ones.
+# The candidates need no ranges: each shard compacts its own, and
+# `candidates_to_tables` puts the gathered union into canonical order.
+def _tile_count_le(pos_f: np.ndarray, pos_t: np.ndarray, g: int,
+                   max_len: int, same_block: bool) -> int:
+    """Exact #pairs of one tile with integer circular len <= max_len."""
+    from ldweaver_tpu_torch.parallel.spmd_sweep import tile_sr_count
+
+    if max_len <= 0:
+        return 0
+    return tile_sr_count(pos_f, pos_t, g, max_len, same_block)
+
+
+def partition_plan(
+    dev_tiles: Sequence[Sequence[Tuple[int, int]]], pos_blocks, g: int,
+    sr_dist: int, part_budget_bytes: int, bytes_per_link: int = 16,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """(bounds, caps): k2-range boundaries [P+1] (ranges [b_i, b_{i+1}),
+    b_0 = 1, b_P = 2*sr_dist) and each (range, shard)'s exact live count
+    [P, nsh], the ranges doubled until every range's gathered buffer
+    (nsh * the largest shard's count * bytes_per_link) fits the budget.
+    `dev_tiles` are the shards' tile lists, `pos_blocks` each block's
+    valid positions.  The JAX package's plan (sr_reduce.py:320-375), with
+    each bound's counts computed once."""
+    nsh = len(dev_tiles)
+    memo: Dict[int, np.ndarray] = {}
+
+    def counts_at(bound_k2: int) -> np.ndarray:
+        """[nsh] counts of live links with k2 < bound_k2 per shard."""
+        if bound_k2 not in memo:
+            max_len = (bound_k2 - 1) // 2  # k2 <= bound-1  <=>  len <= this
+            memo[bound_k2] = np.array([
+                sum(_tile_count_le(pos_blocks[bi], pos_blocks[bj], g, max_len,
+                                   bi == bj) for bi, bj in tiles)
+                for tiles in dev_tiles
+            ], np.int64)
+        return memo[bound_k2]
+
+    P = 2
+    while True:
+        bounds = np.unique(np.linspace(1, 2 * sr_dist, P + 1).astype(np.int64))
+        cum = np.stack([counts_at(int(b)) for b in bounds])  # [P+1, nsh]
+        caps = cum[1:] - cum[:-1]  # [P, nsh]
+        worst = int(caps.max(axis=1).max()) if caps.size else 0
+        if worst * nsh * bytes_per_link <= part_budget_bytes:
+            return bounds, caps
+        if P >= 256 or len(bounds) - 1 >= 2 * sr_dist - 1:
+            print(f"WARNING: SR reduction partition"
+                  f" {worst * nsh * bytes_per_link / 1e9:.1f} GB exceeds the"
+                  f" {part_budget_bytes / 1e9:.1f} GB range budget even at"
+                  " one-distance-key granularity; the partitioned pass may"
+                  " exhaust device memory: add shards or use"
+                  " sr_reduce='host'.", flush=True)
+            return bounds, caps
+        P *= 2
+
+
+def empty_flat(device) -> FlatLinks:
+    z = torch.zeros(0, dtype=torch.int32, device=device)
+    return FlatLinks(k2=z, mi=torch.zeros(0, device=device), c1=z, c2=z,
+                     gi=z, gj=z, live=torch.zeros(0, dtype=torch.bool,
+                                                  device=device))
+
+
+def _as_i32_bits(u: torch.Tensor) -> torch.Tensor:
+    """[0, 2^32) held in i64 -> the same 32 bits as i32."""
+    return torch.where(u >= _TOP, u - (1 << 32), u).to(torch.int32)
+
+
+def part_records(flat: FlatLinks, lo: int, hi: int, count: int,
+                 cap: int) -> torch.Tensor:
+    """[cap, 4] i32 records (k2, mono MI bits, c1, c2) of the shard's
+    `count` live links with k2 in [lo, hi), then pad records under the
+    _DEAD key with the shard's first link's MI (the JAX package's
+    `_build_part_compact` fill, so the range buffer holds the same
+    elements)."""
+    dev = flat.mi.device
+    idx = torch.nonzero(flat.live & (flat.k2 >= lo) & (flat.k2 < hi)).reshape(-1)
+    if idx.numel() != count:
+        raise RuntimeError(f"range [{lo}, {hi}): {idx.numel()} links on the"
+                           f" device, {count} counted on the host")
+    out = torch.zeros((cap, 4), dtype=torch.int32, device=dev)
+    out[:, 0] = _DEAD
+    if flat.mi.numel():
+        out[:, 1] = _as_i32_bits(mono_u32(flat.mi[:1]))
+    out[:count, 0] = flat.k2.index_select(0, idx)
+    out[:count, 1] = _as_i32_bits(mono_u32(flat.mi.index_select(0, idx)))
+    out[:count, 2] = flat.c1.index_select(0, idx)
+    out[:count, 3] = flat.c2.index_select(0, idx)
+    return out
+
+
+def range_stats(buf: torch.Tensor, lo: int, hi: int, nclust: int):
+    """`order_stats` of a gathered range buffer over the keys [lo, hi)."""
+    key = buf[:, 0].to(torch.int64)
+    mono = buf[:, 1].to(torch.int64) & _U32
+    return order_stats(key, mono, buf[:, 2], buf[:, 3], lo, hi, nclust)
+
+
+def part_group_stats(flats: Sequence[FlatLinks], bounds: np.ndarray,
+                     caps: np.ndarray, first_shard: int, sr_dist: int,
+                     nclust: int, gather: Optional[Callable] = None):
+    """Pass 1 by k2 range: (ns, xlo, xhi) [nclust, 2*sr_dist - 1] as
+    `group_stats` gives them, and the largest gathered range buffer in
+    bytes.  `flats` are this process's local shards (global shards
+    first_shard, first_shard + 1, ...); `bounds` and `caps` come from
+    `partition_plan`."""
+    dev0 = flats[0].mi.device
+    grid_n = 2 * sr_dist - 1
+    ns = np.zeros((nclust, grid_n), np.int32)
+    xlo = np.zeros((nclust, grid_n), np.float32)
+    xhi = np.zeros((nclust, grid_n), np.float32)
+    top = 0
+    for i in range(len(bounds) - 1):
+        lo, hi = int(bounds[i]), int(bounds[i + 1])
+        if i == len(bounds) - 2:
+            hi = 2 * sr_dist  # the last range reaches the grid's end
+        cap = int(caps[i].max())
+        if cap == 0:
+            continue  # empty on every shard (host-proven)
+        bufs = [part_records(f, lo, hi, int(caps[i, first_shard + l]), cap)
+                for l, f in enumerate(flats)]
+        if gather is None:
+            buf = torch.cat([b.to(dev0) for b in bufs])
+        else:
+            host = [b for part in gather([b.cpu().numpy() for b in bufs])
+                    for b in part]
+            buf = torch.from_numpy(np.concatenate(host)).to(dev0)
+        top = max(top, buf.numel() * 4)
+        sl = slice(lo - 1, hi - 1)  # grid index = k2 - 1
+        ns[:, sl], xlo[:, sl], xhi[:, sl] = range_stats(buf, lo, hi, nclust)
+        del buf, bufs
+    return ns, xlo, xhi, top
+
+
+def run_part_reduction(
+    lane_segs: List[list], pos_devs: Sequence[torch.Tensor],
+    paint_devs: Sequence[torch.Tensor], *,
+    shard_tiles: Sequence[Sequence[Tuple[int, int]]], first_shard: int,
+    pos_blocks: Sequence[np.ndarray], ranked_pos: np.ndarray,
+    paint_sorted: np.ndarray, B: int, nb: int, g: int, sr_dist: int,
+    nclust: int, total_sr: int, part_budget_bytes: int,
+    gather: Optional[Callable] = None,
+) -> DeviceSrReduction:
+    """The grid-partitioned reduction.  `lane_segs[l]` are the kept SR
+    outputs (bi, bj, sr_idx, sr_vals) of this process's local shard
+    first_shard + l, in canonical order, on that shard's device (the
+    lists are emptied: the flat arrays replace them); `shard_tiles` are
+    every shard's tiles; `gather(obj)` returns every process's obj in rank
+    order (`multihost.allgather_object`; None in one process).  Every
+    process issues the same gathers in the same order and returns the same
+    fits and tables.  Stats as `run_device_reduction`, with sr_partitions
+    and range_mb (the largest gathered range buffer)."""
+    from ldweaver_tpu_torch.core.mi import LinkTable
+
+    stats: Dict[str, float] = {}
+    if total_sr == 0:
+        empty = [
+            LinkTable(*(np.zeros(0, np.int64),) * 4, np.zeros(0), np.zeros(0))
+            for _ in range(nclust)
+        ]
+        return DeviceSrReduction(fits={}, tables=empty, stats=stats)
+
+    t0 = time.perf_counter()
+    flats = []
+    for l, segs in enumerate(lane_segs):
+        flats.append(flat_segments(segs, pos_devs[l], paint_devs[l], B, int(g),
+                                   int(sr_dist))
+                     if segs else empty_flat(pos_devs[l].device))
+        segs.clear()
+    bounds, caps = partition_plan(shard_tiles, pos_blocks, int(g),
+                                  int(sr_dist), part_budget_bytes)
+    ns, xlo, xhi, top = part_group_stats(flats, bounds, caps, first_shard,
+                                         sr_dist, nclust, gather)
+    stats["sr_partitions"] = len(bounds) - 1
+    stats["range_mb"] = round(top / 1e6, 1)
+    stats["bg_stats_s"] = round(time.perf_counter() - t0, 3)
+
+    t0 = time.perf_counter()
+    fits = fits_from_group_stats(ns, xlo, xhi, sr_dist)
+    T = threshold_tables(fits, nclust, sr_dist)
+    stats["bg_fit_s"] = round(time.perf_counter() - t0, 3)
+
+    t0 = time.perf_counter()
+    cand = [candidates(f, T, sr_dist, nclust) for f in flats]
+    del flats
+    if gather is not None:
+        cand = [c for part in gather(cand) for c in part]
+    gi, gj, mi = (np.concatenate([c[k] for c in cand]) for k in range(3))
     count = int(gi.size)
     stats["bg_cand_s"] = round(time.perf_counter() - t0, 3)
     stats["cand_count"] = count

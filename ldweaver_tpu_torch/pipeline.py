@@ -26,6 +26,7 @@ Blocks (R/BacGWES.R:77-88):
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import os
 import shutil
 import sys
@@ -46,7 +47,7 @@ from ldweaver_tpu_torch.io.fasta import parse_fasta_alignment, parse_fasta_snp_a
 from ldweaver_tpu_torch.io.genbank import parse_genbank_file
 from ldweaver_tpu_torch.io.gff import parse_gff_file
 from ldweaver_tpu_torch.io.writers import write_gwes_explorer_output
-from ldweaver_tpu_torch.support import check_supported, resolve_device
+from ldweaver_tpu_torch.support import check_supported, resolve_devices
 
 
 class _Tee:
@@ -108,7 +109,10 @@ def ldweaver(
     """
     cfg = config or LDWeaverConfig(**config_kwargs)
     check_supported(backend=backend, n_devices=cfg.n_devices)
-    device = resolve_device(device)
+    # the local devices of BLK4 and BLK5 (support.resolve_devices)
+    devices = resolve_devices(device, cfg.n_devices)
+    device = devices[0]
+    cfg = dataclasses.replace(cfg, n_devices=len(devices))
     t_global = time.time()
     timings = {}
     open_stages = []

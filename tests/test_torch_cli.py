@@ -5,8 +5,9 @@ all twelve blocks (backend "fast", the default of both CLIs);
 `lr-analyse`, `ldmap` and `snp-fasta` write the same bytes as the JAX CLI
 on the same inputs; `--backend fast`, `--pipeline-depth` and
 `--device-budget-bytes` give the JAX CLI's links; the multi-device
-options, not ported yet, raise NotImplementedError naming their ROADMAP.md
-item."""
+options reach the configuration, and a multi-process bring-up without its
+coordinator, process count or id raises (tests/test_torch_multihost.py
+runs two processes)."""
 
 import os
 import subprocess
@@ -116,7 +117,19 @@ def test_fast_flags_match_jax_cli(run_dset, tmp_path, flags):
     ["--coordinator", "localhost:1234"], ["--num-processes", "2"],
     ["--n-devices", "2"], ["--sr-reduce", "part", "--n-devices", "2"],
 ])
-def test_unported_flags_raise(tmp_path, flags):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcli.main(["run", "--dset", str(tmp_path / "x"), "--aln", "unused.fa",
-                   "--gbk", "unused.gbk", "--device", "cpu", *flags])
+def test_unported_flags_raise(tmp_path, flags, monkeypatch):
+    import ldweaver_tpu_torch.pipeline as tpipe
+
+    seen = {}
+    monkeypatch.setattr(tpipe, "ldweaver", lambda **kw: seen.update(kw))
+    argv = ["run", "--dset", str(tmp_path / "x"), "--aln", "unused.fa",
+            "--gbk", "unused.gbk", "--device", "cpu", *flags]
+    if "--n-devices" not in flags:  # an incomplete bring-up raises
+        with pytest.raises((ValueError, RuntimeError), match="process"):
+            tcli.main(argv)
+        assert not seen
+        return
+    assert tcli.main(argv) == 0
+    cfg = seen["config"]
+    assert cfg.n_devices == 2 and seen["device"] == "cpu"
+    assert cfg.sr_reduce == ("part" if "part" in flags else "auto")

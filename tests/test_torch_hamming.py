@@ -75,9 +75,9 @@ def test_compat_backends_bit_equal(backend):
 
 
 def test_unported_options_raise():
-    """n_devices > 1 is not ported (ROADMAP item 10).  backend="fast" is:
-    its weights are the JAX package's, which takes "fast" through its
-    "jax" weights (pipeline.py:368)."""
+    """n_devices below one raises; two CPU shards give the same weights.
+    backend="fast" gives the JAX package's weights, which takes "fast"
+    through its "jax" weights (pipeline.py:368)."""
     from ldweaver_tpu.core.hamming import (
         estimate_hamming_distance_weights as jax_pkg_weights,
     )
@@ -85,5 +85,7 @@ def test_unported_options_raise():
     sd = structured_snps(8, 64, seed=1)
     got = estimate_hamming_distance_weights(sd, backend="fast", device="cpu")
     assert np.array_equal(got, jax_pkg_weights(sd, backend="jax"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        estimate_hamming_distance_weights(sd, n_devices=2, device="cpu")
+    assert np.array_equal(
+        estimate_hamming_distance_weights(sd, n_devices=2, device="cpu"), got)
+    with pytest.raises(ValueError, match="n_devices"):
+        estimate_hamming_distance_weights(sd, n_devices=0, device="cpu")

@@ -98,6 +98,13 @@ def test_tile_lr_topk_pads_a_ragged_chunk():
 
 
 def test_streaming_and_multi_device_raise(data):
+    """n_devices below one raises; two CPU shards give the one-shard
+    top-k."""
     sd_t, w = data["torch"]
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tfs.fast_lr_topk(sd_t, w, block=2048, n_devices=2, device="cpu")
+    with pytest.raises(ValueError, match="n_devices"):
+        tfs.fast_lr_topk(sd_t, w, block=2048, n_devices=0, device="cpu")
+    one = tfs.fast_lr_topk(sd_t, w, block=2048, topk=300, device="cpu")
+    two = tfs.fast_lr_topk(sd_t, w, block=2048, topk=300, n_devices=2,
+                           device="cpu")
+    for a, b in zip(one, two):
+        assert np.array_equal(a, b)

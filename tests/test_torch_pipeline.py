@@ -151,11 +151,11 @@ def test_timings_and_unported_options(runs, tmp_path):
         assert blk in t
     assert t["blk5_phases"]["spmd"]["tiles"] == 6
     assert t["blk5_phases"]["spmd"]["sr_reduce"] == "device"
-    # the options still unported raise, with the default config
+    # invalid device counts raise, with the default config
     # (SnpEff_Annotate=True) and without it
-    for bad in (dict(sr_reduce="part", n_devices=2), dict(n_devices=2)):
+    for bad in (dict(sr_reduce="part", n_devices=0), dict(n_devices=0)):
         for annotate in (True, False):
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
+            with pytest.raises(ValueError, match="n_devices"):
                 ldweaver_tpu_torch.ldweaver(
                     dset=str(tmp_path / "x"), aln_path="unused.fa",
                     gbk_path="u.gbk", device="cpu", SnpEff_Annotate=annotate,
