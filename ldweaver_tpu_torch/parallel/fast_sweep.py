@@ -19,23 +19,17 @@ PyTorch counterparts of its `_wparts` and `_rank_tile_mi`, the tile itself
 coming from kernel K1 (ops/rank_mi.py).
 
 The LR-only sweep (`prepare_fast_sweep`, `fast_lr_topk`; the sweep leg of
-the JAX package's bench.py) keeps the rank codes resident on one device
-and walks every block pair bucket by bucket, folding each tile's two-stage
-LR top-k into a running per-bucket top-k, then merges the buckets.  When
-the codes exceed 60% of the device budget it streams them instead
-(`_fast_lr_topk_streaming`): the tiles in panel order on a slab cache's
-pool (parallel/slabs.py), their top-k folded on the device into a running
-top-k 32 tiles at a time.
-(2, 2, pure) tiles wider than 1024 columns go through kernel K2
-(ops/fused_tile.py: tile, LR mask and 128-column chunk max in one pass);
-every other tile through K1, the mask in torch ops and `tile_lr_topk`.
-Over several local devices or processes (`n_devices`, parallel/
-multihost.py) each shard sweeps a contiguous range of the tiles and the
-host merges the shards' top-k with the one-shard tie order
-(`_fast_lr_topk_sharded`).
-Top-k keeps the lowest index among equal values, as `lax.top_k` does
-(stable sorts), and buckets are visited in the JAX package's order, so the
-merge breaks ties as it does.
+the JAX package's bench.py) keeps the rank codes resident on each local
+device, or, when they exceed 60% of the device budget, streams them
+through a slab cache's pool (parallel/slabs.py).  Each shard (local
+device and process, parallel/multihost.py) folds its tiles' two-stage LR
+top-k into a running top-k on its device 32 tiles at a time, and the
+host merges the shards'.  (2, 2, pure) tiles wider than 1024 columns go
+through kernel K2 (ops/fused_tile.py: tile, LR mask and 128-column chunk
+max in one pass); every other tile through K1, the mask in torch ops and
+`tile_lr_topk`.  Top-k keeps the lowest index among equal values, as
+`lax.top_k` does (stable sorts), and the merge breaks ties in the JAX
+sweep's visiting order, as its carries do.
 """
 
 from __future__ import annotations
@@ -426,149 +420,35 @@ def fast_lr_topk(
     state: Optional[FastSweepState] = None,
     hbm_budget_bytes: Optional[int] = None,
     device="cuda",
+    merge_chunk: int = 32,
 ):
     """Full LR-only sweep -> global long-range top-k (pos1, pos2, MI),
     MI descending.  The JAX signature's `precision_terms` is left out:
-    the port's kernels always sum the three bf16 weight terms.
+    the port's kernels always sum the three bf16 weight terms.  Pass
+    `state` from prepare_fast_sweep to skip the one-time host prep and
+    transfer (e.g. when sweeping repeatedly or timing the sweep).
 
-    Pass `state` from prepare_fast_sweep to skip the one-time host prep
-    and transfer (e.g. when sweeping repeatedly or timing the sweep).
-    Over several shards (local devices of the state, processes of
-    `torch.distributed`) `_fast_lr_topk_sharded` gives the same top-k."""
-    from ldweaver_tpu_torch.parallel.multihost import process_count
+    Each shard (a local lane of the state, times the processes of
+    `torch.distributed`) sweeps a contiguous range of the canonical tile
+    list (`multihost.shard_ranges`), the lanes taking tiles in turn; a
+    streaming lane computes each tile on its slab pool, the panel's rows
+    pinned.  Every tile's top-k ((2, 2, pure) tiles through K2, the rest
+    through K1) is folded into the lane's running top-k on its device
+    every `merge_chunk` tiles; the processes gather their lanes' top-k
+    and the host merges them by (MI descending, tie key ascending).  The
+    tie key is the tile's place in the JAX sweep's visiting order (its
+    bucket order when resident, fast_sweep.py:660-662; the panel order
+    when streaming) and the candidate's place in its tile's top-k: the
+    order in which the JAX sweep's carries break ties, so the top-k does
+    not depend on the shards."""
+    from ldweaver_tpu_torch.parallel import multihost
+    from ldweaver_tpu_torch.parallel.slabs import panel_pair_order
 
     if state is None:
         state = prepare_fast_sweep(
             snp_data, hdw, block, n_devices, hbm_budget_bytes, device
         )
-    if len(state.lanes) * process_count() > 1:
-        return _fast_lr_topk_sharded(state, int(sr_dist), topk)
-    if state.streaming:
-        return _fast_lr_topk_streaming(state, int(sr_dist), topk)
-    B = state.block
-    k_each = min(topk, B * B)
-    d = state.dev.codes.device
-    f32, i32 = torch.float32, torch.int32
-    parts_v, parts_b, parts_s, parts_x, plists = [], [], [], [], []
-    # JAX's bucket order (fast_sweep.py:660-662): the merge's ties follow it
-    for bidx, (key, plist) in enumerate(
-        sorted(state.buckets.items(), key=lambda kv: -len(kv[1]))
-    ):
-        # running per-bucket top-k (fast_sweep.py:432-472): the carry comes
-        # first, so earlier tiles win ties
-        best_v = torch.full((k_each,), float("-inf"), dtype=f32, device=d)
-        best_s = torch.zeros((k_each,), dtype=i32, device=d)
-        best_x = torch.zeros((k_each,), dtype=i32, device=d)
-        for slot, (bi, bj) in enumerate(plist):
-            vals, idx = _tile_candidates(state, bi, bj, key, int(sr_dist),
-                                         k_each)
-            cat_v = torch.cat([best_v, vals])
-            cat_s = torch.cat([best_s, torch.full_like(idx, slot)])
-            cat_x = torch.cat([best_x, idx])
-            best_v, sel = top_k(cat_v, k_each)
-            best_s, best_x = cat_s[sel], cat_x[sel]
-        parts_v.append(best_v)
-        parts_b.append(torch.full_like(best_s, bidx))
-        parts_s.append(best_s)
-        parts_x.append(best_x)
-        plists.append(np.asarray(plist, np.int64))
-    # merge across buckets (_build_topk_merge, fast_sweep.py:918-944)
-    v = torch.cat(parts_v)
-    mv, sel = top_k(v, min(topk, v.numel()))
-    mv = mv.cpu().numpy()
-    mb = torch.cat(parts_b)[sel].cpu().numpy().astype(np.int64)
-    ms = torch.cat(parts_s)[sel].cpu().numpy().astype(np.int64)
-    mx = torch.cat(parts_x)[sel].cpu().numpy().astype(np.int64)
-    keep = np.isfinite(mv)
-    mv, mb, ms, mx = mv[keep], mb[keep], ms[keep], mx[keep]
-    bi = np.array([plists[b][s, 0] for b, s in zip(mb, ms)], np.int64)
-    bj = np.array([plists[b][s, 1] for b, s in zip(mb, ms)], np.int64)
-    ranked = state.ranked
-    pos2 = ranked.pos[bi * B + mx // B]
-    pos1 = ranked.pos[bj * B + mx % B]
-    order = np.argsort(-mv, kind="stable")
-    return pos1[order], pos2[order], mv[order]
-
-
-def _fast_lr_topk_streaming(state: FastSweepState, sr_dist: int, topk: int,
-                            merge_chunk: int = 32):
-    """Slab-streaming LR-only sweep (`_fast_lr_topk_streaming`,
-    fast_sweep.py:719-918): the tiles in panel order, each computed on the
-    slab pool at its two slabs' columns ((2, 2, pure) tiles through K2,
-    the rest through K1), their top-k folded into a running top-k on the
-    device every `merge_chunk` tiles (the carry first, then the tiles in
-    order, so earlier candidates win ties), then one pull."""
-    from ldweaver_tpu_torch.parallel.slabs import panel_pair_order
-
-    ranked = state.ranked
-    B = state.block
-    nb = ranked.rank_codes.shape[1] // B
-    cache, panel = state.slab_cache, state.panel
-    k_each = min(topk, B * B)
-    d = state.dev.codes.device
-    best_v = torch.full((topk,), float("-inf"), dtype=torch.float32, device=d)
-    best_t = torch.zeros((topk,), dtype=torch.int32, device=d)
-    best_x = torch.zeros((topk,), dtype=torch.int32, device=d)
-    tile_meta: List[Tuple[int, int]] = []
-    pend: list = []
-
-    def flush():
-        nonlocal best_v, best_t, best_x
-        if not pend:
-            return
-        cat_v = torch.cat([best_v] + [v for v, _, _ in pend])
-        cat_t = torch.cat([best_t] + [t for _, t, _ in pend])
-        cat_x = torch.cat([best_x] + [x for _, _, x in pend])
-        best_v, sel = top_k(cat_v, topk)
-        best_t, best_x = cat_t[sel], cat_x[sel]
-        pend.clear()
-
-    cur_panel = -1
-    for bi, bj in panel_pair_order(nb, panel):
-        p = bi // panel
-        if p != cur_panel:
-            cur_panel = p
-            cache.unpin()
-            cache.pin(range(p * panel, min((p + 1) * panel, nb)))
-        cols = (cache.get(bi), cache.get(bj))
-        key = (int(ranked.block_rmax[bi]), int(ranked.block_rmax[bj]),
-               bool(ranked.block_pure[bi]) and bool(ranked.block_pure[bj]))
-        vals, idx = _tile_candidates(state, bi, bj, key, sr_dist, k_each, cols)
-        pend.append((vals, torch.full_like(idx, len(tile_meta)), idx))
-        tile_meta.append((bi, bj))
-        if len(pend) >= merge_chunk:
-            flush()
-    flush()
-    cache.unpin()
-
-    mv = best_v.cpu().numpy()
-    mt = best_t.cpu().numpy().astype(np.int64)
-    mx = best_x.cpu().numpy().astype(np.int64)
-    keep = np.isfinite(mv)
-    mv, mt, mx = mv[keep], mt[keep], mx[keep]
-    meta = np.asarray(tile_meta, np.int64).reshape(-1, 2)
-    pos2 = ranked.pos[meta[mt, 0] * B + mx // B]
-    pos1 = ranked.pos[meta[mt, 1] * B + mx % B]
-    order = np.argsort(-mv, kind="stable")
-    return pos1[order], pos2[order], mv[order]
-
-
-def _fast_lr_topk_sharded(state: FastSweepState, sr_dist: int, topk: int,
-                          merge_chunk: int = 32):
-    """The LR-only sweep over several shards: each local lane and process
-    sweeps a contiguous range of the canonical tile list
-    (`multihost.shard_ranges`), the lanes taking tiles in turn, and folds
-    its tiles' top-k into a running top-k on its device every
-    `merge_chunk` tiles; the processes gather their lanes' top-k, and the
-    host merges them by (MI descending, tie key ascending).  The tie key
-    is the tile's place in the one-shard visiting order (the buckets'
-    order when resident, the panel order when streaming) and the
-    candidate's place in its tile's top-k, the order in which the
-    one-shard sweep breaks ties: the merged top-k equals the one-shard
-    top-k in pairs and order."""
-    from ldweaver_tpu_torch.parallel import multihost
-    from ldweaver_tpu_torch.parallel.slabs import panel_pair_order
-
+    sr_dist = int(sr_dist)
     ranked, B, panel = state.ranked, state.block, state.panel
     nb = ranked.rank_codes.shape[1] // B
     L = len(state.lanes)

@@ -1,5 +1,5 @@
 """Slab streaming in the port (`parallel/slabs.py`, and the streamed
-LR-only sweep `parallel/fast_sweep._fast_lr_topk_streaming`, device="cpu":
+LR-only sweep, `parallel/fast_sweep.fast_lr_topk` on a slab pool; device="cpu":
 the kernels' plain versions): the cases of the JAX package's
 tests/test_stream_sweep.py.
 
