@@ -785,9 +785,8 @@ def blk5_sweep(
     # each lane's tiles in panel order, the lanes taking turns
     lane_tiles = [[t for t in panel_pair_order(nb, panel) if lane_of.get(t) == l]
                   for l in range(L)]
-    visit = [(l, t) for k in range(max(map(len, lane_tiles)))
-             for l in range(L) if k < len(lane_tiles[l])
-             for t in [lane_tiles[l][k]]]
+    visit = [(l, lane_tiles[l][k]) for k in range(max(map(len, lane_tiles)))
+             for l in range(L) if k < len(lane_tiles[l])]
     cur_panel = [-1] * L
     for lane, (bi, bj) in visit:
         if bi // panel != cur_panel[lane]:
