@@ -87,6 +87,11 @@ Phases (any failure exits nonzero before the final line):
                tile): card against CPU at 64 x 2,048, then one process at
                616 x 8,192 SNPs (136 tiles);
      one card- n_devices=2 on the one card raises ValueError;
+     part footprint - the partitioned SR reduction's passes on one shard
+               of 32 M and 8 M synthetic kept pairs (a range buffer up to
+               512 MiB): the bytes a pair and the range factor measured
+               with the card's memory statistics must stay within
+               sr_reduce's PART_* constants, the model "auto" selects by;
   8. multi   - two ranks on cuda:0, joined by torch.distributed on gloo
                (this script started as `--multi-worker job rank port`,
                LDW_SR_BUDGET 1 GiB and device_budget_bytes 8 GiB a rank):
@@ -95,8 +100,10 @@ Phases (any failure exits nonzero before the final line):
                cli - `python -m ldweaver_tpu_torch.cli run --num-processes
                2 --device cuda:0 --backend spmd`; each rank's TSVs
                byte-identical to the single-process card run's.  Then the
-               headline input with sr_reduce="part" (>= 2 k2 ranges), each
-               rank's TSVs byte-identical to the headline phase's, with
+               headline input with sr_reduce="part" (more than 2 k2
+               ranges at the range budget's floor), each rank's TSVs
+               byte-identical to the headline phase's and its peak within
+               the part model, with
                each rank's BLK5 split, gather seconds and bytes and peak
                device memory; the LR-only sweep at 1024 x 131,072 over the
                two ranks (top-1024 equal to the lr phase's resident call,
@@ -803,7 +810,7 @@ def dispatch_must_not_sync(on):
 
     orig = FastTileRunner.dispatch
 
-    def strict(self, bi, bj, lane=None):
+    def strict(self, bi, bj, lane=0):
         torch.cuda.set_sync_debug_mode("error")
         try:
             return orig(self, bi, bj, lane)
@@ -1474,8 +1481,13 @@ def multi_small_phase():
             want = {"auto": "device", "part": "device-part", "host": "host"}[mode]
             if st["shards"] != 2 or st["rank"] != rank or st["sr_reduce"] != want:
                 raise RuntimeError(f"multi small {tag} rank {rank}: {st}")
-            if mode == "part" and st["sr_partitions"] < 2:
-                raise RuntimeError(f"multi small {tag}: one k2 range")
+            # the small input's SR records (~15 MB) fit the range budget
+            # at partition_plan's first split
+            if mode == "part" and (st["sr_partitions"] != 2
+                                   or st["range_mb"] * 1e6 > st["range_budget"]):
+                raise RuntimeError(f"multi small {tag}: {st['sr_partitions']} k2"
+                                   f" ranges, {st['range_mb']} MB the largest of"
+                                   f" {st['range_budget']} bytes")
             k1 += got[tag]["k1"]
     log(f"multi small (two ranks on cuda:0, {wall:.1f} s): byte-identical to the"
         f" single-process card runs {dict((f'r{r}/{t}', v) for (r, t), v in same.items())};"
@@ -1513,12 +1525,17 @@ def multi_cli_phase():
 
 def multi_big_phase(inputs):
     """Two ranks on cuda:0: the headline (616 x 131,072, BLK1-BLK7,
-    sr_reduce="part", LDW_SR_BUDGET 1 GiB a rank), the LR-only sweep at
-    1024 x 131,072 and the sharded sweep through K3.  Each rank's
-    headline TSVs byte-identical to the headline phase's, its top-1024
-    equal to the lr phase's resident call, its sharded result equal to
-    the single-process one (sharded_phase)."""
+    sr_reduce="part", LDW_SR_BUDGET 1 GiB a rank: the flat arrays alone
+    exceed it, so the range budget is sr_reduce.PART_RANGE_MIN and the
+    grid splits into more than 2 k2 ranges), the LR-only sweep at 1024 x
+    131,072 and the sharded sweep through K3.  Each rank's headline TSVs
+    byte-identical to the headline phase's, its BLK5 peak within its
+    peak after the tiles plus `sr_reduce.part_peak_bytes` of its kept
+    pairs, its top-1024 equal to the lr phase's resident call, its
+    sharded result equal to the single-process one (sharded_phase)."""
     import torch
+
+    from ldweaver_tpu_torch.parallel import sr_reduce
 
     torch.cuda.empty_cache()
     wall = launch_ranks("big")
@@ -1551,6 +1568,9 @@ def multi_big_phase(inputs):
                     if k.startswith("blk") and k != "blk5_phases"},
             blk5=blk5_split(h["timings"]), k1=h["k1"], tiles=spmd["tiles"],
             sr_partitions=spmd.get("sr_partitions"), range_mb=spmd.get("range_mb"),
+            range_budget=spmd.get("range_budget"),
+            model_bytes=sr_reduce.part_peak_bytes(spmd["sr_pairs"],
+                                                  spmd.get("range_budget", 0)),
             gather_s=spmd["gather_s"], gather_bytes=spmd["gather_bytes"],
             peak_bytes=spmd["peak_bytes"], peak_tiles_bytes=spmd["peak_tiles_bytes"],
             sr_pairs_on_rank=spmd["sr_pairs"], cand_count=spmd.get("cand_count"),
@@ -1559,8 +1579,14 @@ def multi_big_phase(inputs):
             sharded_wall_s=got["sharded"]["wall_s"], sharded_k3=got["sharded"]["k3"],
             sharded_equal=sh_equal)
         log(f"multi headline rank {rank}: {json.dumps(res[f'r{rank}'])}")
-        if spmd["sr_reduce"] != "device-part" or spmd["sr_partitions"] < 2:
-            raise RuntimeError(f"multi headline rank {rank}: not partitioned: {spmd}")
+        r = res[f"r{rank}"]
+        if (spmd["sr_reduce"] != "device-part" or spmd["sr_partitions"] <= 2
+                or spmd["range_budget"] != sr_reduce.PART_RANGE_MIN):
+            raise RuntimeError(f"multi headline rank {rank}: not partitioned by"
+                               f" the range budget's floor: {spmd}")
+        if r["peak_bytes"] > r["peak_tiles_bytes"] + r["model_bytes"]:
+            raise RuntimeError(f"multi headline rank {rank}: BLK5 peak over the"
+                               f" part model: {r}")
         if not all(same.values()):
             raise RuntimeError(f"multi headline rank {rank}: TSVs differ from the headline's")
         if spmd["shards"] != 2 or spmd["tiles"] != 264 or h["k1"] < 264:
@@ -1622,6 +1648,96 @@ def sharded_phase():
     return launches
 
 
+PART_PAIRS = 32 << 20  # the footprint phase's shard: a 512 MiB range buffer
+
+
+def part_footprint(n, device, nclust=8, seed=11):
+    """Device bytes of the partitioned SR reduction's passes on one shard
+    of n kept pairs, nearly every pair live (16,384 distinct positions
+    within SR_DIST of each other): the flattening, one k2 range holding every
+    record (the shard's records and the copy that one process gathers)
+    and the candidates.  Returns the bytes a pair of the passes over the
+    shard and of the flat arrays, the range buffer's bytes and its pass's
+    bytes over the flat arrays (memory statistics only on a card)."""
+    import torch
+
+    from ldweaver_tpu_torch.parallel import sr_reduce as sr
+
+    cuda = torch.device(device).type == "cuda"
+
+    def mem(peak=False):
+        if not cuda:
+            return 0
+        torch.cuda.synchronize(device)
+        return (torch.cuda.max_memory_allocated(device) if peak
+                else torch.cuda.memory_allocated(device))
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    nb = 4
+    pos = (torch.randperm(nb * B, generator=gen, device=device) + 1).to(torch.int32)
+    paint = torch.randint(1, nclust + 1, (nb * B,), generator=gen, device=device,
+                          dtype=torch.int32)
+    tiles = [(i, j) for i in range(nb) for j in range(i, nb)]
+    per = 1 << 19
+    base = mem()
+    segs = []
+    for k in range(n // per):
+        idx = torch.randint(0, B * B, (per,), generator=gen, device=device,
+                            dtype=torch.int32)
+        vals = torch.rand(per, generator=gen, device=device) * 0.99 + 0.01
+        segs.append((*tiles[k % len(tiles)], idx, vals))
+    n = per * (n // per)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    flat = sr.flat_segments(segs, pos, paint, B, G, SR_DIST)
+    segs.clear()
+    flatten = mem(True) - base
+    resident = mem() - base
+    count = int(flat.live.sum())  # all but a site's pair with itself
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    before = mem()
+    ns, xlo, xhi, range_bytes = sr.part_group_stats(
+        [flat], np.array([1, 2 * SR_DIST]), np.array([[count]]), 0, SR_DIST, nclust)
+    range_pass = mem(True) - before
+    T = sr.threshold_tables(sr.fits_from_group_stats(ns, xlo, xhi, SR_DIST),
+                            nclust, SR_DIST)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    gi, _, _ = sr.candidates(flat, T, SR_DIST, nclust)
+    cand = mem(True) - base
+    return dict(pairs=n, candidates=int(gi.size), pass_bytes_a_pair=max(flatten, cand) / n,
+                flatten_bytes_a_pair=flatten / n, candidates_bytes_a_pair=cand / n,
+                flat_bytes_a_pair=resident / n, range_bytes=range_bytes,
+                range_pass_bytes=range_pass, range_factor=range_pass / range_bytes)
+
+
+def part_footprint_phase():
+    """`sr_reduce.part_peak_bytes` against the card: the footprint of the
+    partitioned pass's shard at PART_PAIRS kept pairs (a range buffer of
+    sr_reduce.PART_RANGE_MAX) and at a quarter of them.  Fails when a
+    measured term exceeds the model's constant."""
+    import torch
+
+    from ldweaver_tpu_torch.parallel import sr_reduce as sr
+
+    out = []
+    for n in (PART_PAIRS, PART_PAIRS // 4):
+        torch.cuda.empty_cache()
+        got = part_footprint(n, "cuda")
+        log(f"part footprint ({n} pairs): {json.dumps(got)}")
+        out.append(got)
+        if got["range_bytes"] > sr.PART_RANGE_MAX:
+            raise RuntimeError("part footprint: the range buffer outgrew PART_RANGE_MAX")
+        over = [k for k, lim in (("pass_bytes_a_pair", sr.PART_PASS_BYTES),
+                                 ("flat_bytes_a_pair", sr.PART_PAIR_BYTES),
+                                 ("range_factor", sr.PART_RANGE_FACTOR))
+                if got[k] > lim]
+        if over:
+            raise RuntimeError(f"part footprint over the model's constants: {over}")
+    return out
+
+
 def one_card_phase():
     """n_devices=2 on the one card raises ValueError, before any work."""
     from ldweaver_tpu_torch.parallel.fast_sweep import fast_lr_topk
@@ -1667,6 +1783,7 @@ def main():
     k3_by_shape = timed("compat", compat_phase)
     k3_sharded = timed("sharded", sharded_phase)
     timed("one card", one_card_phase)
+    timed("part footprint", part_footprint_phase)
     timed("multi small", multi_small_phase)
     timed("multi cli", multi_cli_phase)
     multi_by_bucket, multi_lr_by_bucket, multi_k2, multi_k3 = timed(

@@ -31,7 +31,7 @@ import os
 import time
 import zipfile
 import zlib
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -290,9 +290,9 @@ class FastTileRunner:
     at least as many as tiles that succeeded) demotes the runner to full
     transfers.  Outputs do not depend on the transfer mode.
 
-    Several local devices (`devices`, the JAX runner's `devices=`): each
+    `devices` are the local devices (the JAX runner's `devices=`): each
     is a lane with its own slab cache and device inputs; `dispatch` sends
-    a tile to the lane it is given, else round-robin, and `finish` runs
+    a tile to the lane it is given (lane 0 by default), and `finish` runs
     its retry or fallback on the same lane.  Results do not depend on the
     lane."""
 
@@ -314,8 +314,7 @@ class FastTileRunner:
         keep_sr: bool = False,
         topk_cap: int = 1 << 18,
         sr_counts: Optional[np.ndarray] = None,
-        device="cuda",
-        devices: Optional[List[torch.device]] = None,
+        devices: Sequence = ("cuda",),
     ):
         self.ranked = ranked
         self.paint_sorted = paint_sorted
@@ -332,7 +331,7 @@ class FastTileRunner:
             else max(0.0, 1.0 - lr_retain_links / lr_links_approx)
         )
         self.caches, self.devs = [], []
-        for d in devices or [device]:
+        for d in devices:
             cache = SlabCache(ranked.rank_codes, ranked.block, max_slabs, d)
             self.caches.append(cache)
             self.devs.append(device_inputs(
@@ -340,7 +339,6 @@ class FastTileRunner:
                 paint_sorted if keep_sr else None, codes=cache.pool,
             ))
         self.cache, self.dev = self.caches[0], self.devs[0]  # lane 0
-        self._rr = 0  # round-robin cursor
         self.K, self.k_row = extract_dims(ranked.block, self.lr_prob,
                                           k_max=topk_cap)
         self.sr_counts = (sr_pair_counts(ranked, valid, g, sr_dist)
@@ -388,10 +386,7 @@ class FastTileRunner:
         emit_sr_pairs(sr_idx, sr_vals, **self._emit_kw(bi, bj, None))
 
     # -- dispatch: queue device work, do NOT wait for it ----------------
-    def dispatch(self, bi: int, bj: int, lane: Optional[int] = None) -> dict:
-        if lane is None:
-            lane = self._rr % len(self.devs)
-            self._rr += 1
+    def dispatch(self, bi: int, bj: int, lane: int = 0) -> dict:
         with annotate("fast_dispatch"):
             return self._dispatch(bi, bj, lane)
 
@@ -596,7 +591,7 @@ def sweep_block_pair_fast(
     runner = FastTileRunner(
         ranked, paint_sorted, valid, hdw, neff, g, sr_dist,
         lr_retain_links, lr_links_approx, sr_links, transfer=transfer,
-        device=resolve_device(device),
+        devices=[resolve_device(device)],
     )
     runner.emit_sr(bi, bj, *runner.finish(runner.dispatch(bi, bj), lr_rows_sink))
 

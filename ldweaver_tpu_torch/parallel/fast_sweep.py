@@ -42,7 +42,6 @@ import torch
 
 from ldweaver_tpu_torch.ops.fused_tile import CHUNK, chunk_max, fused_tile_stage1
 from ldweaver_tpu_torch.ops.rank_mi import N_TERMS, rank_mi_tile
-from ldweaver_tpu_torch.support import resolve_devices
 
 
 # --------------------------------------------------------------------------
@@ -275,8 +274,9 @@ class SweepLane:
 @dataclasses.dataclass
 class FastSweepState:
     """One-time preparation of the LR-only sweep: one `SweepLane` a local
-    device and the block pairs bucketed by (Rf, Rt, both-blocks-pure).
-    Prepare once, sweep many."""
+    device (global shards first_shard, first_shard + 1, ... of n_shards,
+    `multihost.shard_layout`) and the block pairs bucketed by (Rf, Rt,
+    both-blocks-pure).  Prepare once, sweep many."""
 
     ranked: RankedSnps
     buckets: Dict[Tuple[int, int, bool], List[Tuple[int, int]]]
@@ -285,6 +285,8 @@ class FastSweepState:
     g: int
     streaming: bool = False
     panel: int = 0
+    first_shard: int = 0
+    n_shards: int = 1
 
     @property
     def dev(self):
@@ -335,15 +337,16 @@ def prepare_fast_sweep(
     device="cuda",
 ) -> FastSweepState:
     """Rank-encode + stratify + move the SNP tensor to each local device
-    (`support.resolve_devices(device, n_devices)`).
+    (`multihost.shard_layout(device, n_devices)`).
 
     If the rank codes exceed 60% of `hbm_budget_bytes` (by default the
     card's memory), the sweep streams them through a slab cache in panel
     order (slabs.plan_budget): the device holds only the pool, and the
     marginals are computed slab by slab here."""
+    from ldweaver_tpu_torch.parallel.multihost import shard_layout
     from ldweaver_tpu_torch.parallel.slabs import auto_budget, plan_budget
 
-    devices = resolve_devices(device, n_devices)
+    devices, first_shard, n_shards = shard_layout(device, n_devices)
     if hbm_budget_bytes is None:
         hbm_budget_bytes = auto_budget(devices[0])
     ranked = stratify(
@@ -371,6 +374,7 @@ def prepare_fast_sweep(
     return FastSweepState(
         ranked=ranked, buckets=buckets, lanes=lanes, block=block,
         g=snp_data.g, streaming=streaming, panel=panel,
+        first_shard=first_shard, n_shards=n_shards,
     )
 
 
@@ -410,6 +414,11 @@ def _tile_candidates(state: FastSweepState, bi: int, bj: int,
     return tile_lr_topk(torch.where(lr_ok, mi, float("-inf")), B, B, topk)
 
 
+# tiles whose top-k a lane of `fast_lr_topk` folds into its running top-k
+# at a time
+MERGE_CHUNK = 32
+
+
 def fast_lr_topk(
     snp_data=None,
     hdw: np.ndarray = None,
@@ -420,7 +429,6 @@ def fast_lr_topk(
     state: Optional[FastSweepState] = None,
     hbm_budget_bytes: Optional[int] = None,
     device="cuda",
-    merge_chunk: int = 32,
 ):
     """Full LR-only sweep -> global long-range top-k (pos1, pos2, MI),
     MI descending.  The JAX signature's `precision_terms` is left out:
@@ -434,7 +442,7 @@ def fast_lr_topk(
     streaming lane computes each tile on its slab pool, the panel's rows
     pinned.  Every tile's top-k ((2, 2, pure) tiles through K2, the rest
     through K1) is folded into the lane's running top-k on its device
-    every `merge_chunk` tiles; the processes gather their lanes' top-k
+    every MERGE_CHUNK tiles; the processes gather their lanes' top-k
     and the host merges them by (MI descending, tie key ascending).  The
     tie key is the tile's place in the JAX sweep's visiting order (its
     bucket order when resident, fast_sweep.py:660-662; the panel order
@@ -452,7 +460,6 @@ def fast_lr_topk(
     ranked, B, panel = state.ranked, state.block, state.panel
     nb = ranked.rank_codes.shape[1] // B
     L = len(state.lanes)
-    world, rank = multihost.process_count(), multihost.process_index()
     k_each = min(topk, B * B)
     if state.streaming:
         order = list(panel_pair_order(nb, panel))
@@ -462,8 +469,8 @@ def fast_lr_topk(
                  for t in plist]
     ordinal = {t: i for i, t in enumerate(order)}
     canonical = list(panel_pair_order(nb, nb))
-    ranges = multihost.shard_ranges(len(canonical), world * L)
-    lane_tiles = [sorted(canonical[slice(*ranges[rank * L + l])],
+    ranges = multihost.shard_ranges(len(canonical), state.n_shards)
+    lane_tiles = [sorted(canonical[slice(*ranges[state.first_shard + l])],
                          key=ordinal.__getitem__) for l in range(L)]
     best = []
     for lane in state.lanes:
@@ -503,7 +510,7 @@ def fast_lr_topk(
             tie = (torch.arange(vals.numel(), device=vals.device)
                    + ordinal[bi, bj] * k_each)
             pend[l].append([vals, tie, idx.to(torch.int32)])
-            if len(pend[l]) >= merge_chunk:
+            if len(pend[l]) >= MERGE_CHUNK:
                 flush(l)
     for l in range(L):
         flush(l)

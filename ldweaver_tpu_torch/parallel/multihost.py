@@ -11,7 +11,9 @@ JAX package; so two processes may share one card.
 
 Collective order: gloo needs every process to issue its collectives in
 the same order.  The callers issue them from the main thread only, at
-points that do not depend on the process's own data.
+points that do not depend on the process's own data; a choice a process
+makes from its own environment (BLK5's SR reduction, from its SR budget)
+is gathered and compared first, and a mismatch raises.
 
 Outputs: every process ends with every tile's links and writes the same
 files; `is_writer` is there for callers that want one writer.
@@ -87,6 +89,19 @@ def process_index() -> int:
 
 def is_writer() -> bool:
     return process_index() == 0
+
+
+def shard_layout(device="cuda", n_devices: Optional[int] = None
+                 ) -> Tuple[list, int, int]:
+    """(this process's local devices, its first global shard, the shard
+    count): shard s = process * L + local device l, the port's counterpart
+    of the JAX package's 1-D mesh over every device of every process.  The
+    devices follow `support.resolve_devices(device, n_devices)`."""
+    from ldweaver_tpu_torch.support import resolve_devices
+
+    devices = resolve_devices(device, n_devices)
+    L = len(devices)
+    return devices, process_index() * L, process_count() * L
 
 
 def shard_ranges(n: int, n_shards: int) -> List[Tuple[int, int]]:

@@ -590,10 +590,10 @@ def blk5_sweep(
     and emit links in the reference's order (row-major inside a tile, f64
     thresholds).  Returns (stats, DeviceSrReduction or None).
 
-    Shards: the local devices (`support.resolve_devices(device,
-    n_devices)`) times the processes of `torch.distributed`
-    (parallel/multihost.py).  The canonical tile list
-    `panel_pair_order(nb, nb)` is cut into one contiguous range a shard;
+    Shards: the local devices times the processes of
+    `torch.distributed` (`multihost.shard_layout(device, n_devices)`).
+    The canonical tile list `panel_pair_order(nb, nb)` is cut into one
+    contiguous range a shard;
     each local shard is a lane of one `core.sweep.FastTileRunner`, whose
     slab pool holds every block when the rank codes fit 60% of
     `device_budget_bytes` (by default the card's memory), else the lane's
@@ -612,7 +612,10 @@ def blk5_sweep(
     `sr_reduce.run_part_reduction` reduces them by k2 range), no SR pair
     is emitted and the caller finishes with
     `merge_and_sort_sr_links_from_candidates` on the returned reduction
-    (TSVs byte-identical to the host mode).
+    (TSVs byte-identical to the host mode).  Each process selects the
+    mode, and for "part" the range budget (`sr_reduce.part_range_budget`),
+    from its own SR budget; under several processes they compare their
+    choices before the loop and raise if they differ.
 
     `checkpoint_dir` resumes the sweep tile by tile (the JAX package's
     segment checkpoints, at tile granularity): each finished tile's LR
@@ -648,14 +651,16 @@ def blk5_sweep(
         panel_pair_order,
         plan_budget,
     )
-    from ldweaver_tpu_torch.parallel.sr_reduce import run_part_reduction, sr_budget
-    from ldweaver_tpu_torch.support import resolve_devices
+    from ldweaver_tpu_torch.parallel.sr_reduce import (
+        part_range_budget,
+        run_part_reduction,
+        sr_budget,
+    )
 
-    devices = resolve_devices(device, n_devices)
+    devices, first, nsh = multihost.shard_layout(device, n_devices)
     device = devices[0]
     L = len(devices)
     world, rank = multihost.process_count(), multihost.process_index()
-    nsh = world * L
     ranked = stratify(
         snp_data.codes, snp_data.acgtn_table, snp_data.pos, snp_data.r, block
     )
@@ -673,11 +678,20 @@ def blk5_sweep(
     canonical = list(panel_pair_order(nb, nb))
     shard_tiles = [canonical[lo:hi]
                    for lo, hi in multihost.shard_ranges(len(canonical), nsh)]
-    lane_of = {t: l for l in range(L) for t in shard_tiles[rank * L + l]}
-    mode = select_mode(
-        sr_reduce, total_sr, g, device, verbose,
-        shard_sr=[sum(int(sr_counts[t]) for t in tiles) for tiles in shard_tiles],
-    )
+    lane_of = {t: l for l in range(L) for t in shard_tiles[first + l]}
+    shard_sr = [sum(int(sr_counts[t]) for t in tiles) for tiles in shard_tiles]
+    mode = select_mode(sr_reduce, total_sr, g, device, verbose, shard_sr=shard_sr)
+    range_budget = (part_range_budget(sr_budget(device), max(shard_sr))
+                    if mode == "part" else 0)
+    gstats = multihost.GatherStats()
+    if world > 1:
+        # every process must issue the same collectives: one mode, one plan
+        choices = multihost.allgather_object((mode, range_budget), gstats)
+        if len(set(choices)) > 1:
+            raise RuntimeError(
+                "BLK5: the processes chose different SR reductions (mode,"
+                f" range budget) by rank: {choices}; give every process the"
+                " same LDW_SR_BUDGET and the same card memory")
     keep_sr = mode != "host"
     if device_budget_bytes is None:
         device_budget_bytes = auto_budget(device)
@@ -691,7 +705,7 @@ def blk5_sweep(
     runner = FastTileRunner(
         ranked, paint_sorted, valid, hdw, neff, g, sr_dist, lr_retain_links,
         lr_links_approx, sr_links, topk_cap=topk_cap, max_slabs=max_slabs,
-        keep_sr=keep_sr, sr_counts=sr_counts, device=device, devices=devices,
+        keep_sr=keep_sr, sr_counts=sr_counts, devices=devices,
     )
     depth = max(1, int(pipeline_depth))
     stats = dict(tiles=0, retries=0, fallbacks=0, demoted=False, sr_pairs=0,
@@ -812,7 +826,6 @@ def blk5_sweep(
     while queue:
         finish_one()
     runner.unpin_all()
-    gstats = multihost.GatherStats()
     if world > 1:
         # every process's tiles, at one fixed point: LR rows, and the SR
         # pairs unless each shard reduces its own ("part")
@@ -849,9 +862,8 @@ def blk5_sweep(
                       for i in range(nb)]
         reduction = run_part_reduction(
             segs, [d.pos for d in runner.devs], [d.paint for d in runner.devs],
-            shard_tiles=shard_tiles, first_shard=rank * L,
-            pos_blocks=pos_blocks,
-            part_budget_bytes=max(sr_budget(device) // 2, 64 << 20),
+            shard_tiles=shard_tiles, first_shard=first, pos_blocks=pos_blocks,
+            part_budget_bytes=range_budget,
             gather=(None if world == 1 else
                     lambda obj: multihost.allgather_object(obj, gstats)),
             **red_kw)

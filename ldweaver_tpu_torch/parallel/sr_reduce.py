@@ -302,15 +302,39 @@ def candidates_to_tables(
 # --------------------------------------------------------------------------
 # Mode selection
 # --------------------------------------------------------------------------
-# Device bytes a kept SR pair costs its shard in the partitioned pass.
-# Resident: the shard's flat arrays, 25 bytes (k2, MI, c1, c2, gi, gj i32
-# and the live flag; the kept (i32 index, f32 MI) pairs are released once
-# flat).  On top, a range buffer of at most half the budget and its sort
-# temporaries.  Measured on an H100 80GB HBM3 (700 W) at 616 genomes x
-# 131,072 SNPs over two processes with a 1 GiB budget: peak 4.92 GB for
-# the larger shard's 101 M pairs, 48.6 bytes a pair (25 a pair more than
-# the smaller shard's 3.76 GB for 55 M).
-PART_BYTES_PER_PAIR = 49
+# Device bytes of the partitioned pass ("part") on a shard of n kept SR
+# pairs whose gathered range buffer (every shard's records of one k2
+# range) holds at most R bytes:
+#     max(PART_PASS_BYTES * n, PART_PAIR_BYTES * n + PART_RANGE_FACTOR * R)
+# The first term is the passes over the whole shard: flattening (the kept
+# (i32 index, f32 MI) pairs beside the flat arrays and their temporaries)
+# and the candidates.  The second is a range pass: the flat arrays (k2,
+# MI, c1, c2, gi, gj i32 and the live flag) beside the shard's records,
+# the range buffer, its i64 keys and the sort's temporaries.  Measured on
+# an H100 80GB HBM3 (700 W) by chip_smoke.part_footprint at 8 M and 32 M
+# pairs: 37.2-37.7 bytes a pair for the passes (flattening 33.0), 25.1-
+# 25.5 for the flat arrays, 6.09-6.13 x R; the constants bound these, and
+# chip_smoke.part_footprint_phase fails when a measurement exceeds one.
+PART_PASS_BYTES = 40
+PART_PAIR_BYTES = 26
+PART_RANGE_FACTOR = 7
+# The range budget R is what the SR budget leaves beside the flat arrays,
+# within these bounds; the upper one is the largest R measured.
+PART_RANGE_MIN = 64 << 20
+PART_RANGE_MAX = 512 << 20
+
+
+def part_range_budget(budget: int, n: int) -> int:
+    """The range budget R of the partitioned pass under an SR budget of
+    `budget` bytes, the largest shard holding n kept pairs."""
+    left = (int(budget) - PART_PAIR_BYTES * int(n)) // PART_RANGE_FACTOR
+    return int(min(PART_RANGE_MAX, max(PART_RANGE_MIN, left)))
+
+
+def part_peak_bytes(n: int, range_budget: int) -> int:
+    """The partitioned pass's device bytes on a shard of n kept pairs."""
+    return max(PART_PASS_BYTES * int(n),
+               PART_PAIR_BYTES * int(n) + PART_RANGE_FACTOR * int(range_budget))
 
 
 def sr_budget(device) -> int:
@@ -334,8 +358,8 @@ def select_mode(sr_reduce: str, total_sr: int, g: int, device,
 
     The single-device reduction ("device") counts 8 bytes a kept pair (i32
     index, f32 MI) against `sr_budget`; the partitioned one ("part", more
-    than one shard) counts PART_BYTES_PER_PAIR a pair of the largest
-    shard.  g >= 2^30 would overflow the int32 distance key: always the
+    than one shard) counts `part_peak_bytes` of the largest shard at the
+    range budget `part_range_budget` gives.  g >= 2^30 would overflow the int32 distance key: always the
     host.  "device" ignores the budget; "part" is the partitioned pass
     whenever there is more than one shard, and on one shard "device" when
     it fits, else the host; "auto" takes "device", else "part", else warns
@@ -354,7 +378,8 @@ def select_mode(sr_reduce: str, total_sr: int, g: int, device,
     if nsh > 1:
         if sr_reduce == "part":
             return "part"
-        part_fits = max(shard_sr) * PART_BYTES_PER_PAIR <= budget
+        n = max(shard_sr)
+        part_fits = part_peak_bytes(n, part_range_budget(budget, n)) <= budget
         mode = "device" if fits else ("part" if part_fits else "host")
     else:
         mode = "device" if fits else "host"
@@ -592,8 +617,9 @@ def run_part_reduction(
     every shard's tiles; `gather(obj)` returns every process's obj in rank
     order (`multihost.allgather_object`; None in one process).  Every
     process issues the same gathers in the same order and returns the same
-    fits and tables.  Stats as `run_device_reduction`, with sr_partitions
-    and range_mb (the largest gathered range buffer)."""
+    fits and tables.  Stats as `run_device_reduction`, with sr_partitions,
+    range_budget (`part_budget_bytes`, the bound on a gathered range
+    buffer) and range_mb (the largest one)."""
     from ldweaver_tpu_torch.core.mi import LinkTable
 
     stats: Dict[str, float] = {}
@@ -616,6 +642,7 @@ def run_part_reduction(
     ns, xlo, xhi, top = part_group_stats(flats, bounds, caps, first_shard,
                                          sr_dist, nclust, gather)
     stats["sr_partitions"] = len(bounds) - 1
+    stats["range_budget"] = int(part_budget_bytes)
     stats["range_mb"] = round(top / 1e6, 1)
     stats["bg_stats_s"] = round(time.perf_counter() - t0, 3)
 

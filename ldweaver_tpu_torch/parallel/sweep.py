@@ -2,9 +2,10 @@
 JAX package's parallel/sweep.py).
 
 The SNP code tensor, weights and per-site arrays are replicated on every
-shard (one shard a local device and process, `shard_layout`); the list of
-upper-triangular block pairs is padded to a multiple of the shard count
-and cut into one contiguous range a shard (`pad_pairs`, the JAX mesh's
+shard (one shard a local device and process,
+`multihost.shard_layout`); the list of upper-triangular block pairs is
+padded to a multiple of the shard count and cut into one contiguous
+range a shard (`pad_pairs`, the JAX mesh's
 P('b') split).  Each shard computes one [B, B] 25-allele compat MI tile
 a pair with kernel K3 (ops/compat_mi.py, the reference's RXY alias of a
 square tile), keeps a two-stage LR top-k and a histogram of the SR MI
@@ -15,26 +16,13 @@ over the JAX scan's stacked outputs, the histograms by a sum.
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from ldweaver_tpu_torch.ops.compat_mi import N_ALLELES, compat_mi_tile
 from ldweaver_tpu_torch.parallel.fast_sweep import top_k, wparts
-
-
-def shard_layout(n_devices: Optional[int] = None, device="cuda"
-                 ) -> Tuple[List[torch.device], int, int]:
-    """(this process's local devices, first global shard of this process,
-    shard count): the port's counterpart of the JAX package's 1-D mesh
-    over every device of every process.  Shard s = rank * L + l."""
-    from ldweaver_tpu_torch.parallel.multihost import process_count, process_index
-    from ldweaver_tpu_torch.support import resolve_devices
-
-    devices = resolve_devices(device, n_devices)
-    L = len(devices)
-    return devices, process_index() * L, process_count() * L
 
 
 def pad_snp_tensor(codes: np.ndarray, pos: np.ndarray, r: np.ndarray,
@@ -151,7 +139,7 @@ def sharded_lr_topk(
     result."""
     from ldweaver_tpu_torch.parallel import multihost
 
-    devices, first, nsh = shard_layout(n_devices, device)
+    devices, first, nsh = multihost.shard_layout(device, n_devices)
     codes, pos, r, uqe, valid = pad_snp_tensor(
         snp_data.codes, snp_data.pos, snp_data.r, snp_data.uqe, block
     )

@@ -79,7 +79,8 @@ def run_tiles(sd, hdw, transfer, topk, retain, approx, block=512, pkg="torch"):
     if pkg == "torch":
         runner = tsweep.FastTileRunner(
             ranked, paint_sorted, valid, hdw, float(hdw.sum()), sd.g, SR_DIST,
-            retain, approx, sr_links, transfer=transfer, topk=topk, device="cpu")
+            retain, approx, sr_links, transfer=transfer, topk=topk,
+            devices=["cpu"])
     else:
         runner = jsweep.FastTileRunner(
             ranked, paint_sorted, valid, hdw, float(hdw.sum()), sd.g, SR_DIST,

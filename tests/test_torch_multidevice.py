@@ -13,8 +13,9 @@ spmd and fast, sr_reduce auto, part and host.  Equal to one shard:
 version) against the JAX package's on 2 shards: MI within rtol 2e-4 and
 atol 2e-5 (the tile tolerance of tests/test_fast_sweep.py:260), pairs
 equal apart from near-ties, the histogram equal; one, two and three
-shards of the port give the same result.  n_devices=2 on "cuda" without
-two cards raises."""
+shards of the port give the same result.  "auto" takes "part" by the
+partitioned pass's footprint model.  n_devices=2 on "cuda" without two
+cards raises."""
 
 import os
 
@@ -32,6 +33,30 @@ from ldweaver_tpu_torch.parallel.slabs import panel_pair_order
 from tests.test_torch_sr_reduce import SR_DIST, port_case
 
 NSH = 8  # the JAX tests' virtual devices
+# the part mode's range budget in the pipeline tests: 16 k2 ranges of the
+# test input over 2 or 3 shards (the floor of 64 MiB would hold it in 2)
+RANGE_BUDGET = 1 << 16
+
+
+def pin_range_budget(monkeypatch, nbytes=RANGE_BUDGET):
+    monkeypatch.setattr(tsr, "PART_RANGE_MIN", nbytes)
+    monkeypatch.setattr(tsr, "PART_RANGE_MAX", nbytes)
+
+
+def planned_partitions(sd, st, nsh, sr_dist=SR_DIST):
+    """The k2 ranges `partition_plan` gives BLK5's `nsh` shards of sd at
+    the range budget of the run whose BLK5 stats are `st`."""
+    from ldweaver_tpu_torch.parallel.fast_sweep import stratify
+
+    B = st["block"]
+    ranked = stratify(sd.codes, sd.acgtn_table, sd.pos, sd.r, B)
+    nb = ranked.rank_codes.shape[1] // B
+    valid = np.arange(ranked.pos.size) < sd.nsnp
+    blocks = [ranked.pos[i * B : (i + 1) * B][valid[i * B : (i + 1) * B]]
+              for i in range(nb)]
+    bounds, _ = tsr.partition_plan(shard_tiles(nb, nsh)[1], blocks, sd.g,
+                                   sr_dist, st["range_budget"])
+    return len(bounds) - 1
 
 
 def run_pmc(sd, w, cds, out, backend="spmd", **kw):
@@ -247,8 +272,8 @@ def test_shards_byte_identical(one_shard, tmp_path, backend, sr_reduce,
     (sd, w, cds), ref = one_shard
     assert ref["sr_links.tsv"].count(b"\n") > 100
     assert ref["lr_links.tsv"].count(b"\n") > 1000
-    if sr_reduce == "part":  # a small range budget: several k2 ranges
-        monkeypatch.setenv("LDW_SR_BUDGET", str(1 << 16))
+    if sr_reduce == "part":
+        pin_range_budget(monkeypatch)
     for n in (2, 3):
         ph, files = run_pmc(sd, w, cds, str(tmp_path / f"n{n}"), backend,
                             sr_reduce=sr_reduce, n_devices=n, device="cpu")
@@ -257,7 +282,8 @@ def test_shards_byte_identical(one_shard, tmp_path, backend, sr_reduce,
         assert st["sr_reduce"] == {"auto": "device", "part": "device-part",
                                    "host": "host"}[sr_reduce]
         if sr_reduce == "part":
-            assert st["sr_partitions"] >= 2
+            assert st["range_budget"] == RANGE_BUDGET
+            assert st["sr_partitions"] == planned_partitions(sd, st, n) > 2
         assert files.keys() == ref.keys()
         for name in ref:
             assert files[name] == ref[name], (n, name)
@@ -310,6 +336,37 @@ def test_sharded_lr_topk_matches_jax():
         other = tsw.sharded_lr_topk(sd_t, w, n_devices=n, device="cpu", **kw)
         for a, b in zip(got, other):
             assert np.array_equal(a, b)
+
+
+def test_select_mode_part_model(monkeypatch):
+    """"auto" over several shards takes "part" exactly when the flat table
+    is over the SR budget and `part_peak_bytes` of the largest shard, at
+    the range budget `part_range_budget` leaves beside its flat arrays,
+    fits; on one shard it never does.  The range budget stays within its
+    bounds."""
+    n = 100_000_000
+    lo, hi = tsr.PART_RANGE_MIN, tsr.PART_RANGE_MAX
+    assert tsr.part_range_budget(1 << 30, n) == lo
+    assert tsr.part_range_budget(80 << 30, n) == hi
+    mid = tsr.PART_PAIR_BYTES * n + tsr.PART_RANGE_FACTOR * ((lo + hi) // 2)
+    assert tsr.part_range_budget(mid, n) == (lo + hi) // 2
+    shards = [n] + [n // 2] * 10
+    total = sum(shards)
+    least = max(tsr.PART_PASS_BYTES * n,
+                tsr.PART_PAIR_BYTES * n + tsr.PART_RANGE_FACTOR * lo)
+    assert least < 8 * total
+    assert tsr.part_peak_bytes(n, tsr.part_range_budget(least, n)) <= least
+    for budget, want, one in ((8 * total, "device", "device"),
+                              (least, "part", "host"),
+                              (least - 1, "host", "host")):
+        monkeypatch.setenv("LDW_SR_BUDGET", str(budget))
+        got = tsr.select_mode("auto", total, 2_200_000, "cpu", verbose=False,
+                              shard_sr=shards)
+        assert got == want, budget
+        assert tsr.select_mode("auto", total, 2_200_000, "cpu",
+                               verbose=False) == one
+        assert tsr.select_mode("part", total, 2_200_000, "cpu", verbose=False,
+                               shard_sr=shards) == "part"
 
 
 def test_two_cuda_devices_on_one_card_raise(monkeypatch):

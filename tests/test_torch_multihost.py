@@ -9,7 +9,8 @@ write sr and lr TSVs (and fit files) byte-identical to the single-process
 port run, within the reference fringe of the JAX package's run
 (tests/test_torch_pipeline.py's helpers); their top-k equals the one-shard
 top-k.  A bring-up without a coordinator, process count or id raises, and
-so does a worker whose peer never comes."""
+so does a worker whose peer never comes; two workers whose SR budgets
+lead them to different SR reductions both raise instead of hanging."""
 
 import json
 import os
@@ -24,6 +25,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LR_RETAIN = 20_000
 SR_DIST = 2000
 MODES = ("auto", "part")
+RANGE_BUDGET = 1 << 16
 
 
 def free_port() -> int:
@@ -96,19 +98,29 @@ def run_pmc(mod, sd, w, cds, out, **kw):
     return phases
 
 
-def worker(workdir, rank, port):
+def worker(workdir, rank, port, job):
+    """`job` "runs": the pipeline in both modes and the LR sweep;
+    "disagree": rank 0 with an SR budget of one byte ("auto" takes the
+    host), rank 1 with the default (the device)."""
     import torch
 
     from ldweaver_tpu_torch.core import sweep as tsweep
     from ldweaver_tpu_torch.parallel import fast_sweep, multihost
+    from ldweaver_tpu_torch.parallel import sr_reduce as tsr
 
     torch.set_num_threads(1)
     multihost.initialize_multihost(f"localhost:{port}", 2, rank, timeout_s=240)
     sd, w, cds, lr, lr_w = load_case(os.path.join(workdir, "case.npz"))
+    if job == "disagree":
+        if rank == 0:
+            os.environ["LDW_SR_BUDGET"] = "1"
+        run_pmc(tsweep, sd, w, cds, os.path.join(workdir, job, f"r{rank}"),
+                device="cpu")
+        return
     stats = {}
     for mode in MODES:
-        if mode == "part":
-            os.environ["LDW_SR_BUDGET"] = str(1 << 16)  # several k2 ranges
+        if mode == "part":  # tests/test_torch_multidevice.py's RANGE_BUDGET
+            tsr.PART_RANGE_MIN = tsr.PART_RANGE_MAX = RANGE_BUDGET
         ph = run_pmc(tsweep, sd, w, cds, os.path.join(workdir, f"r{rank}", mode),
                      sr_reduce=mode, device="cpu")
         stats[mode] = ph["spmd"]
@@ -182,22 +194,22 @@ def case(tmp_path_factory):
         lr_uqe=uqe, lr_r=r, lr_w=lr_w,
     )
     port = free_port()
-    runs = launch([[sys.executable, __file__, str(d), str(rank), str(port)]
-                   for rank in range(2)])
+    runs = launch([[sys.executable, __file__, str(d), str(rank), str(port),
+                    "runs"] for rank in range(2)])
     for rc, out in runs:
         assert rc == 0, out[-4000:]
     return d, (sd, w, cds, jsd, jcds)
 
 
 @pytest.mark.parametrize("mode", MODES)
-def test_two_processes_byte_identical(case, tmp_path, mode, monkeypatch):
+def test_two_processes_byte_identical(case, tmp_path, mode):
     import ldweaver_tpu.core.sweep as jsweep
     import ldweaver_tpu_torch.core.sweep as tsweep
     from tests.test_torch_pipeline import assert_lr_within_fringe, assert_sr_within_fringe
 
+    from tests.test_torch_multidevice import planned_partitions
+
     d, (sd, w, cds, jsd, jcds) = case
-    if mode == "part":
-        monkeypatch.setenv("LDW_SR_BUDGET", str(1 << 16))
     one = str(tmp_path / "one")
     run_pmc(tsweep, sd, w, cds, one, sr_reduce=mode, device="cpu")
     ref = tsv_files(one)
@@ -208,7 +220,9 @@ def test_two_processes_byte_identical(case, tmp_path, mode, monkeypatch):
         assert st["tiles"] == 3 and st["gather_bytes"] > 0
         assert st["sr_reduce"] == {"auto": "device", "part": "device-part"}[mode]
         if mode == "part":
-            assert st["sr_partitions"] >= 2
+            assert st["range_budget"] == RANGE_BUDGET
+            planned = planned_partitions(sd, st, 2, SR_DIST)
+            assert st["sr_partitions"] == planned > 2
         got = tsv_files(str(d / f"r{rank}" / mode))
         assert got.keys() == ref.keys()
         for name in ref:
@@ -230,6 +244,19 @@ def test_two_process_fast_lr_topk(case):
         got = np.load(d / f"lr{rank}.npz")
         for a, k in zip(one, ("p1", "p2", "mi")):
             assert np.array_equal(a, got[k]), (rank, k)
+
+
+def test_processes_choosing_different_sr_reductions_raise(case):
+    """Ranks whose SR budgets give different modes stop with an error
+    before the sweep, instead of issuing different collectives."""
+    d, _ = case
+    port = free_port()
+    runs = launch([[sys.executable, __file__, str(d), str(rank), str(port),
+                    "disagree"] for rank in range(2)], timeout=300)
+    for rc, out in runs:
+        assert rc != 0, out[-4000:]
+        assert "chose different SR reductions" in out, out[-4000:]
+        assert "('host', 0), ('device', 0)" in out, out[-4000:]
 
 
 def test_two_process_cli(tmp_path):
@@ -263,4 +290,4 @@ def test_two_process_cli(tmp_path):
 
 if __name__ == "__main__":
     sys.path.insert(0, REPO)
-    worker(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]))
+    worker(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
