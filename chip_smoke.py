@@ -109,6 +109,21 @@ Phases (any failure exits nonzero before the final line):
                two ranks (top-1024 equal to the lr phase's resident call,
                K1 and K2 launches summing to 150 and 378); the sharded
                sweep over the two ranks (equal to the one-process result).
+  9. terms   - the weight-term count t = 1 and 2 (`precision_terms` of the
+               sweeps, `n_terms` of the kernels; every other phase runs the
+               default three): K1 at the LR sweep's buckets ((2,2) pure,
+               (2,3) and (3,3) pure and general) at S = 1024, K2 at 4096^2
+               x 1024 and K3 at 4000^2 and 512^2 x 616, each against its
+               plain version at the same t in float64 on the card; the
+               host-facing `mi_tile_rank_pallas`, `mi_tile_rank` and
+               `mi_tile_pallas` at 512^2 x 616, card against CPU;
+               `fast_lr_topk(precision_terms=t)` at 256 genomes x 16,384
+               SNPs, block 2048, card against CPU (the top-k rule of
+               tests/test_torch_lr_sweep.py); then the sweep leg's shape
+               (1024 x 131,072, block 4096, top-k 1024) resident at t = 1,
+               2 and 3 from one prepared state: median wall of 5 calls,
+               pairs/s, K1 and K2 launches and the device-time split.  The
+               kernels line lists every row with its `n_terms`.
 Each path runs with the launch counts of its kernels set to 0 just before
 and read just after (the cli phases' and the ranks' launches are their
 subprocesses' own).
@@ -325,13 +340,14 @@ def bucket_inputs(rng, Rf, Rt, pure, S):
     return np.ascontiguousarray(np.concatenate([cf, ct], axis=1)), rf, rt, w
 
 
-def kernel_phase(S, buckets, seed):
-    """K1 at B x S for each bucket: against its plain version in float64
-    on the card (the exact tile of the kernel's own inputs) and the host
-    f64 oracle on a 256 x 256 sub-tile; CUDA-event times of the kernel,
-    the plain version as the CPU path runs it (float32) and one bf16
-    torch.matmul of the stacked count planes,
-    [(Rf-1) B, 3S] x [3S, (Rt-1) B]."""
+def kernel_phase(S, buckets, seed, terms=3):
+    """K1 at B x S for each bucket over the first `terms` bf16 weight
+    terms: against its plain version in float64 on the card (the exact
+    tile of the kernel's own inputs) and, at three terms (the f32 weights),
+    the host f64 oracle on a 256 x 256 sub-tile; CUDA-event times of the
+    kernel, the plain version as the CPU path runs it (float32) and one
+    bf16 torch.matmul of the stacked count planes,
+    [(Rf-1) B, tS] x [tS, (Rt-1) B]."""
     import torch
 
     from ldweaver_tpu_torch.core.mi import mi_tile_numpy
@@ -342,11 +358,11 @@ def kernel_phase(S, buckets, seed):
     rng = np.random.default_rng(seed)
     rows = {}
     for Rf, Rt, pure in buckets:
-        tag = f"K1 {Rf},{Rt},{'pure' if pure else 'general'} S={S}"
+        tag = f"K1 {Rf},{Rt},{'pure' if pure else 'general'} S={S} t={terms}"
         codes_np, rf_np, rt_np, w = bucket_inputs(rng, Rf, Rt, pure, S)
         codes = torch.from_numpy(codes_np).to(dev)
         w32, parts = wparts(w)
-        w32, parts = w32.to(dev), parts.to(dev).contiguous()
+        w32, parts = w32.to(dev), parts[:terms].to(dev).contiguous()
         px = rank_marginals(codes, 0, B, w32, Rf)
         py = rank_marginals(codes, B, B, w32, Rt)
         r_f = torch.tensor(rf_np, dtype=torch.float32, device=dev)
@@ -373,23 +389,25 @@ def kernel_phase(S, buckets, seed):
         oracle = mi_tile_numpy(cf, ct, w, rf_np[:n], rt_np[:n], uq_f, uq_t,
                                float(w.sum()), rxy_compat=False)
         sub = got[:n, :n].double().cpu().numpy()
-        ok64 = np.allclose(sub, oracle, rtol=RTOL_F64, atol=ATOL_F64)
+        # the oracle holds the f32 weights: below three terms the counted
+        # planes hold their bf16 rounding, and only the plain version binds
+        ok64 = terms < 3 or np.allclose(sub, oracle, rtol=RTOL_F64, atol=ATOL_F64)
         err64 = float(np.abs(sub - oracle).max())
 
         ms = cuda_time_ms(lambda: rank_mi.rank_mi_tile(*args), reps=20)
         plain_ms = cuda_time_ms(lambda: rank_mi.rank_mi_tile_reference(*args), reps=3, warm=1)
         nc = (Rf - 1) * (Rt - 1) if Rf >= 2 and Rt >= 2 else 0
         if nc:
-            lhs = torch.ones(((Rf - 1) * B, 3 * S), dtype=torch.bfloat16, device=dev)
-            rhs = torch.ones(((Rt - 1) * B, 3 * S), dtype=torch.bfloat16, device=dev)
+            lhs = torch.ones(((Rf - 1) * B, terms * S), dtype=torch.bfloat16, device=dev)
+            rhs = torch.ones(((Rt - 1) * B, terms * S), dtype=torch.bfloat16, device=dev)
             library_ms = cuda_time_ms(lambda: torch.matmul(lhs, rhs.T), reps=20)
             del lhs, rhs
         else:
             library_ms = None  # no contraction: the tile is marginals only
-        nbytes = S * 2 * B + 2 * 3 * S + 4 * (Rf + Rt) * B + 8 * B + 4 * B * B
-        bound_ms, bound_by = bound(nbytes, 2.0 * B * B * 3 * S * nc)
+        nbytes = S * 2 * B + 2 * terms * S + 4 * (Rf + Rt) * B + 8 * B + 4 * B * B
+        bound_ms, bound_by = bound(nbytes, 2.0 * B * B * terms * S * nc)
         row = dict(
-            Rf=Rf, Rt=Rt, pure=pure, S=S, max_abs_err=err,
+            Rf=Rf, Rt=Rt, pure=pure, S=S, n_terms=terms, max_abs_err=err,
             f32_plain_max_abs_err=err32, f64_max_abs_err=err64,
             ms=ms, plain_ms=plain_ms, library_ms=library_ms,
             bound_ms=bound_ms, bound_by=bound_by, bound_frac=bound_ms / ms,
@@ -427,10 +445,11 @@ def fused_inputs(rng, same):
     return np.ascontiguousarray(codes), pos, valid, w
 
 
-def fused_phase():
-    """K2 at the LR sweep's tile shape, cross- and same-block: against its
-    plain version in float64 on the card (the exact candidates of the
-    kernel's own inputs) and the host f64 oracle on the first 256 rows."""
+def fused_phase(terms=3):
+    """K2 at the LR sweep's tile shape over the first `terms` weight terms,
+    cross- and same-block: against its plain version in float64 on the
+    card (the exact candidates of the kernel's own inputs) and, at three
+    terms, the host f64 oracle on the first 256 rows."""
     import torch
 
     from ldweaver_tpu_torch.core.mi import mi_tile_numpy
@@ -447,11 +466,11 @@ def fused_phase():
     f64 = torch.float64
     row = None
     for same in (False, True):
-        tag = f"K2 {'same' if same else 'cross'}-block"
+        tag = f"K2 {'same' if same else 'cross'}-block t={terms}"
         codes_np, pos_np, valid_np, w = fused_inputs(rng, same)
         codes = torch.from_numpy(codes_np).to(dev)
         w32, parts = wparts(w)
-        w32, parts = w32.to(dev), parts.to(dev).contiguous()
+        w32, parts = w32.to(dev), parts[:terms].to(dev).contiguous()
         ts = 0 if same else B
         pos = torch.from_numpy(pos_np).to(dev)
         valid = torch.from_numpy(valid_np).to(dev)
@@ -510,23 +529,24 @@ def fused_phase():
             raise RuntimeError(f"{tag}: kernel vs plain (f64) {err:.3e} > {ATOL_PLAIN}")
         if tie_gap > NEAR_TIE:
             raise RuntimeError(f"{tag}: a divergent column is no near-tie ({tie_gap:.3e})")
-        if not torch.allclose(k_sub, o_vals[o_fin], rtol=RTOL_F64, atol=ATOL_F64):
+        if terms == 3 and not torch.allclose(k_sub, o_vals[o_fin], rtol=RTOL_F64,
+                                             atol=ATOL_F64):
             raise RuntimeError(f"{tag}: kernel vs f64 oracle {err64:.3e}")
         if not same:
             ms = cuda_time_ms(lambda: fused_tile.fused_tile_stage1(*args, **kw), reps=20)
             plain_ms = cuda_time_ms(
                 lambda: fused_tile.fused_tile_stage1_reference(*args, **kw), reps=3, warm=1)
-            lhs = torch.ones((B, 3 * K2_S), dtype=torch.bfloat16, device=dev)
-            rhs = torch.ones((B, 3 * K2_S), dtype=torch.bfloat16, device=dev)
+            lhs = torch.ones((B, terms * K2_S), dtype=torch.bfloat16, device=dev)
+            rhs = torch.ones((B, terms * K2_S), dtype=torch.bfloat16, device=dev)
             library_ms = cuda_time_ms(lambda: torch.matmul(lhs, rhs.T), reps=20)
             del lhs, rhs
-            nbytes = (K2_S * 2 * B + 2 * 3 * K2_S + 4 * 2 * 2 * B + 4 * 2 * B
+            nbytes = (K2_S * 2 * B + 2 * terms * K2_S + 4 * 2 * 2 * B + 4 * 2 * B
                       + 2 * B + 8 * B * (B // 128))
-            bound_ms, bound_by = bound(nbytes, 2.0 * B * B * 3 * K2_S)
-            row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms, bound_by = bound(nbytes, 2.0 * B * B * terms * K2_S)
+            row = dict(n_terms=terms, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                        library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
                        bound_frac=bound_ms / ms)
-            log(f"K2 timing: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bf16"
+            log(f"K2 timing t={terms}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bf16"
                 f" matmul {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}),"
                 f" {bound_ms / ms:.3f} of the bound")
         else:
@@ -536,13 +556,18 @@ def fused_phase():
     return row
 
 
-def compat_kernel_phase():
-    """K3 at the tile shapes of the 8,191-SNP compat pipeline: 4000 x 4000,
-    the ragged 4000 x 191 and the diagonal 191 x 191 (rxy_compat=True, so
-    the ragged tiles carry the column-major RXY alias), and at the sharded
-    sweep's 512 x 512 tile.  Each against its
-    plain version in float64 on the card, and a sub-input of up to 256 x
-    256 against the host float64 oracle."""
+K3_SHAPES = ((K3_F, K3_F, K3_F), (K3_F, K3_EDGE, K3_F), (K3_EDGE, K3_EDGE, 0),
+             (SHARDED_B, SHARDED_B, K3_F))
+
+
+def compat_kernel_phase(shapes=K3_SHAPES, terms=3):
+    """K3 over the first `terms` weight terms at the tile shapes of the
+    8,191-SNP compat pipeline: 4000 x 4000, the ragged 4000 x 191 and the
+    diagonal 191 x 191 (rxy_compat=True, so the ragged tiles carry the
+    column-major RXY alias), and at the sharded sweep's 512 x 512 tile.
+    Each against its plain version in float64 on the card, and (at three
+    terms) a sub-input of up to 256 x 256 against the host float64
+    oracle."""
     import torch
 
     from ldweaver_tpu_torch.core.mi import mi_tile_numpy
@@ -553,9 +578,8 @@ def compat_kernel_phase():
     rows = {}
     # (F, T, first column of the column block): cross-block tiles read the
     # second half of the sites, the diagonal tile its own rows
-    for F, T, t0 in ((K3_F, K3_F, K3_F), (K3_F, K3_EDGE, K3_F), (K3_EDGE, K3_EDGE, 0),
-                     (SHARDED_B, SHARDED_B, K3_F)):
-        tag = f"K3 {F}x{T}"
+    for F, T, t0 in shapes:
+        tag = f"K3 {F}x{T} t={terms}"
         cf = np.ascontiguousarray(codes[:, :F].T)
         ct = np.ascontiguousarray(codes[:, t0 : t0 + T].T)
 
@@ -563,7 +587,8 @@ def compat_kernel_phase():
             return (cf[:n_f], ct[:n_t], w, r[:n_f], r[t0 : t0 + n_t],
                     uqe[:n_f], uqe[t0 : t0 + n_t], float(w.sum()))
 
-        args = compat_mi.tile_inputs(*host(F, T), rxy_compat=True, device=dev)
+        args = compat_mi.tile_inputs(*host(F, T), rxy_compat=True, n_terms=terms,
+                                     device=dev)
         got = compat_mi.compat_mi_tile(*args)
         exact = compat_mi.compat_mi_tile_reference(*args, dtype=torch.float64)
         plain = compat_mi.compat_mi_tile_reference(*args)
@@ -575,20 +600,22 @@ def compat_kernel_phase():
         err_plain = float((plain.double() - exact).abs().max())
         del exact
         sub = host(min(256, F), min(256, T))
-        k_sub = compat_mi.mi_tile_pallas(*sub, rxy_compat=True, device=dev)
+        k_sub = compat_mi.mi_tile_pallas(*sub, rxy_compat=True, n_terms=terms,
+                                         device=dev)
         oracle = mi_tile_numpy(*sub, rxy_compat=True)
         err64 = float(np.abs(k_sub - oracle).max())
         ms = cuda_time_ms(lambda: compat_mi.compat_mi_tile(*args), reps=5, warm=1)
         plain_ms = cuda_time_ms(
             lambda: compat_mi.compat_mi_tile_reference(*args), reps=2, warm=1)
-        lhs = torch.ones((4 * F, 3 * S), dtype=torch.bfloat16, device=dev)
-        rhs = torch.ones((4 * T, 3 * S), dtype=torch.bfloat16, device=dev)
+        lhs = torch.ones((4 * F, terms * S), dtype=torch.bfloat16, device=dev)
+        rhs = torch.ones((4 * T, terms * S), dtype=torch.bfloat16, device=dev)
         library_ms = cuda_time_ms(lambda: torch.matmul(lhs, rhs.T), reps=5)
         del lhs, rhs
-        # 16 counted planes (the fifth row / column by closure)
-        nbytes = S * (F + T) + 2 * 3 * S + 4 * (11 * (F + T)) + 8 * F * T
-        bound_ms, bound_by = bound(nbytes, 16 * 2.0 * F * T * 3 * S)
-        rows[(F, T)] = dict(max_abs_err=err, f32_plain_max_abs_err=err32,
+        # 16 counted planes (the fifth row / column by closure); per site
+        # 5 marginals, 5 closure marginals, 5 gates and r
+        nbytes = S * (F + T) + 2 * terms * S + 4 * (16 * (F + T)) + 8 * F * T
+        bound_ms, bound_by = bound(nbytes, 16 * 2.0 * F * T * terms * S)
+        rows[(F, T)] = dict(n_terms=terms, max_abs_err=err, f32_plain_max_abs_err=err32,
                             f64_max_abs_err=err64, ms=ms, plain_ms=plain_ms,
                             library_ms=library_ms, bound_ms=bound_ms,
                             bound_by=bound_by, bound_frac=bound_ms / ms)
@@ -600,7 +627,7 @@ def compat_kernel_phase():
             f" {err64:.2e} ({k_sub.shape[0]}x{k_sub.shape[1]} sub-input)")
         if err > ATOL_PLAIN:
             raise RuntimeError(f"{tag}: kernel vs plain (f64) {err:.3e} > {ATOL_PLAIN}")
-        if not np.allclose(k_sub, oracle, rtol=RTOL_K3, atol=ATOL_K3):
+        if terms == 3 and not np.allclose(k_sub, oracle, rtol=RTOL_K3, atol=ATOL_K3):
             raise RuntimeError(f"{tag}: kernel vs f64 oracle {err64:.3e}")
         del args, got, plain
         torch.cuda.empty_cache()
@@ -1738,6 +1765,148 @@ def part_footprint_phase():
     return out
 
 
+# --------------------------------------------------------------------------
+# 9. the weight-term count
+# --------------------------------------------------------------------------
+TERMS = (1, 2)  # the counts below the default three that the phase checks
+# K1's buckets at the LR sweep's S = 1024, with the (2,2) pure bucket that
+# K2 takes in the sweep
+TERMS_K1_BUCKETS = [(2, 2, True)] + LR_BUCKETS
+TERMS_K3_SHAPES = ((K3_F, K3_F, K3_F), (SHARDED_B, SHARDED_B, K3_F))
+
+
+def assert_topk_agree(ref, got, k):
+    """tests/test_torch_lr_sweep.py's rule: k pairs each, MI descending;
+    pairs on one side only within NEAR_TIE of the k-th value, common pairs'
+    MI within rtol 2e-4, atol 2e-5, the same order apart from swaps of
+    near-tied neighbours."""
+    (p1r, p2r, mr), (p1g, p2g, mg) = ref, got
+    if mr.size != k or mg.size != k or not np.all(np.diff(mg) <= 0):
+        raise RuntimeError("top-k: malformed")
+    kr = list(zip(p1r.tolist(), p2r.tolist()))
+    kg = list(zip(p1g.tolist(), p2g.tolist()))
+    vr, vg = dict(zip(kr, mr)), dict(zip(kg, mg))
+    kth = min(mr[-1], mg[-1])
+    far = [p for p in set(kr) ^ set(kg) if vr.get(p, vg.get(p)) - kth > NEAR_TIE]
+    common = sorted(set(kr) & set(kg))
+    a = np.array([vr[p] for p in common], np.float64)
+    b = np.array([vg[p] for p in common], np.float64)
+    swaps = [i for i, (x, y) in enumerate(zip(kr, kg))
+             if x != y and abs(float(mr[i]) - float(mg[i])) > NEAR_TIE]
+    if far or swaps or not np.allclose(b, a, rtol=RTOL_F64, atol=ATOL_F64):
+        raise RuntimeError(f"top-k disagree: {len(far)} pairs beyond a near-tie,"
+                           f" {len(swaps)} order swaps, MI max abs diff"
+                           f" {np.abs(a - b).max():.2e}")
+    return len(set(kr) ^ set(kg)), float(np.abs(a - b).max())
+
+
+def terms_phase():
+    """The weight-term count t = 1, 2 (`precision_terms` / `n_terms`; three,
+    the default, is every other phase's): K1 at the LR sweep's buckets at
+    S = 1024, K2 at 4096^2 x 1024 and K3 at 4000^2 and 512^2 x 616, each
+    against its plain version at the same t on the card; the host-facing
+    `mi_tile_rank_pallas`, `mi_tile_rank` and `mi_tile_pallas` at 512^2 x
+    616, card against CPU; `fast_lr_topk(precision_terms=t)` at 256 genomes
+    x 16,384 SNPs, block 2048, card against CPU; then the sweep leg's shape
+    (1024 x 131,072, block 4096, top-k 1024), resident, at t = 1, 2 and 3:
+    median wall of 5 calls, pairs/s, K1 and K2 launches, device time."""
+    import torch
+
+    from ldweaver_tpu_torch.ops import compat_mi, fused_tile, rank_mi
+    from ldweaver_tpu_torch.parallel.fast_sweep import (
+        fast_lr_topk,
+        mi_tile_rank,
+        prepare_fast_sweep,
+    )
+
+    rows = {}
+    for t in TERMS:
+        rows[t] = dict(
+            k1=kernel_phase(K2_S, TERMS_K1_BUCKETS, 20261019, terms=t),
+            k2=fused_phase(terms=t),
+            k3=compat_kernel_phase(TERMS_K3_SHAPES, terms=t),
+        )
+
+    # the host-facing tiles, card against CPU (the plain versions)
+    rng = np.random.default_rng(7)
+    n = SHARDED_B
+    codes_np, rf_np, rt_np, w = bucket_inputs(rng, 2, 3, False, S)
+    cf = np.ascontiguousarray(codes_np[:, :n].T)
+    ct = np.ascontiguousarray(codes_np[:, B : B + n].T)
+    rank_args = (cf, ct, w, rf_np[:n], rt_np[:n], float(w.sum()))
+    ccodes, _, uqe, r, cw, _ = bench_synth(2 * n, S, seed=9)
+    compat_args = (np.ascontiguousarray(ccodes[:, :n].T),
+                   np.ascontiguousarray(ccodes[:, n:].T), cw, r[:n], r[n:],
+                   uqe[:n], uqe[n:], float(cw.sum()))
+    for t in TERMS:
+        compat_mi.K3.reset()
+        got = {dev: (rank_mi.mi_tile_rank_pallas(*rank_args, n_terms=t, device=dev),
+                     mi_tile_rank(*rank_args, precision_terms=t, device=dev),
+                     compat_mi.mi_tile_pallas(*compat_args, n_terms=t, device=dev))
+               for dev in ("cuda", "cpu")}
+        rows[t]["k3_host_launches"] = compat_mi.K3.launches
+        errs = [float(np.abs(a - b).max()) for a, b in zip(got["cuda"], got["cpu"])]
+        log(f"host-facing tiles t={t} ({n}^2 x {S}), max|card-CPU|:"
+            f" mi_tile_rank_pallas {errs[0]:.2e}, mi_tile_rank {errs[1]:.2e},"
+            f" mi_tile_pallas {errs[2]:.2e}")
+        if max(errs) > ATOL_PLAIN or not all(np.isfinite(a).all() for a in got["cuda"]):
+            raise RuntimeError(f"host-facing tiles at t={t}: card and CPU disagree")
+
+    # the LR-only sweep, card against CPU, at a small size
+    sd, w = bench_snp_data(16384, 256, seed=6)
+    for t in TERMS:
+        res = {dev: fast_lr_topk(sd, w, block=2048, sr_dist=SR_DIST, topk=1024,
+                                 precision_terms=t, device=dev)
+               for dev in ("cuda", "cpu")}
+        one_side, diff = assert_topk_agree(res["cpu"], res["cuda"], 1024)
+        log(f"LR sweep t={t}, card vs CPU (256 x 16,384, block 2048, top-k 1024):"
+            f" {one_side} pairs on one side only (near-ties), MI max abs diff"
+            f" {diff:.2e}")
+
+    # the sweep leg at t = 1, 2, 3 from one prepared state
+    sd, w = bench_snp_data(131072, 1024, seed=0)
+    state = prepare_fast_sweep(sd, w, block=4096, device="cuda")
+    tiles = {k: len(v) for k, v in state.buckets.items()}
+    n22 = tiles.get((2, 2, True), 0)
+    pairs = sd.nsnp * (sd.nsnp - 1) // 2
+    sweep = {}
+    for t in (1, 2, 3):
+        fast_lr_topk(sr_dist=SR_DIST, topk=1024, precision_terms=t, state=state)
+        walls = []
+        for _ in range(5):
+            rank_mi.K1.reset()
+            fused_tile.K2.reset()
+            t0 = time.time()
+            pos1, pos2, mi = fast_lr_topk(sr_dist=SR_DIST, topk=1024,
+                                          precision_terms=t, state=state)
+            walls.append(time.time() - t0)
+            k1, k1_by_bucket, k2 = (rank_mi.K1.launches, dict(rank_mi.K1.by_bucket),
+                                    fused_tile.K2.launches)
+            if not (mi.size == 1024 and np.isfinite(mi).all()
+                    and np.all(np.diff(mi) <= 0) and (pos1 != pos2).all()):
+                raise RuntimeError(f"LR sweep t={t}: malformed top-k")
+            if k2 != n22 or k1 + k2 != sum(tiles.values()):
+                raise RuntimeError(f"LR sweep t={t}: K2 {k2} launches for {n22}"
+                                   f" (2,2,pure) tiles, K1 {k1}")
+        median = float(np.median(walls))
+        busy = device_time_split(lambda: fast_lr_topk(
+            sr_dist=SR_DIST, topk=1024, precision_terms=t, state=state))
+        sweep[t] = dict(walls_s=walls, median_s=median, pairs_per_s=pairs / median,
+                        k1_launches=k1, k1_by_bucket=k1_by_bucket, k2_launches=k2,
+                        top_mi=float(mi[0]), kth_mi=float(mi[-1]), **busy)
+        log(f"LR sweep t={t} (131,072 SNPs x 1024 genomes, block 4096, top-k 1024):"
+            f" timed {[round(x, 3) for x in walls]} s, median {median:.3f} s ="
+            f" {pairs / median:.4g} pairs/s; K2 {k2} launches, K1 {k1}"
+            f" {k1_by_bucket}; device time {busy['device_busy_s']:.3f} s, K2"
+            f" {100 * busy['device_share'].get('fused_tile', 0.0):.1f}%, K1"
+            f" {100 * busy['device_share'].get('rank_mi', 0.0):.1f}% of it")
+    del state
+    torch.cuda.empty_cache()
+    log("terms sweep: " + json.dumps({
+        t: {k: v for k, v in r.items() if k != "k1_by_bucket"} for t, r in sweep.items()}))
+    return rows, sweep
+
+
 def one_card_phase():
     """n_devices=2 on the one card raises ValueError, before any work."""
     from ldweaver_tpu_torch.parallel.fast_sweep import fast_lr_topk
@@ -1752,6 +1921,40 @@ def one_card_phase():
             log(f"n_devices=2 on one card: ValueError: {e}")
         else:
             raise RuntimeError("n_devices=2 on one card did not raise")
+
+
+LINE_KEYS = ("n_terms", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+             "bound_frac", "library_ms")
+
+
+def k1_line(row, launches, **extra):
+    """K1's entry of the kernels line (names carry t below three)."""
+    t = "" if row["n_terms"] == 3 else f",t={row['n_terms']}"
+    return dict(
+        name=(f"rank_mi_tile[Rf={row['Rf']},Rt={row['Rt']},"
+              f"{'pure' if row['pure'] else 'general'},S={row['S']}{t}]"),
+        route="cuda", source="ldweaver_tpu_torch/csrc/rank_mi.cu",
+        replaces=("ldweaver_tpu/parallel/fast_sweep.py:223" if row["pure"]
+                  else "ldweaver_tpu/ops/pallas_rank_mi.py:23"),
+        launches=launches, **{k: row[k] for k in LINE_KEYS}, **extra)
+
+
+def k2_line(row, launches, **extra):
+    t = "" if row["n_terms"] == 3 else f",t={row['n_terms']}"
+    return dict(
+        name=f"fused_tile_stage1[Rf=2,Rt=2,pure,S=1024{t}]", route="cuda",
+        source="ldweaver_tpu_torch/csrc/fused_tile.cu",
+        replaces="ldweaver_tpu/ops/pallas_fused_tile.py:42",
+        launches=launches, **{k: row[k] for k in LINE_KEYS}, **extra)
+
+
+def k3_line(row, F, T, launches, **extra):
+    t = "" if row["n_terms"] == 3 else f",t={row['n_terms']}"
+    return dict(
+        name=f"compat_mi_tile[{F}x{T},S={S}{t}]", route="cuda",
+        source="ldweaver_tpu_torch/csrc/compat_mi.cu",
+        replaces="ldweaver_tpu/ops/pallas_mi.py:28",
+        launches=launches, **{k: row[k] for k in LINE_KEYS}, **extra)
 
 
 def timed(name, fn, *args):
@@ -1788,6 +1991,7 @@ def main():
     timed("multi cli", multi_cli_phase)
     multi_by_bucket, multi_lr_by_bucket, multi_k2, multi_k3 = timed(
         "multi headline, lr, sharded", multi_big_phase, headline_inputs)
+    terms_rows, terms_sweep = timed("terms", terms_phase)
     kernels = []
     # K1 at the spmd slice's S = 616 and the LR sweep's S = 1024, each row
     # with the launches of the path that runs the kernel at that shape (the
@@ -1811,26 +2015,12 @@ def main():
                      if rows is k1_slice else
                      {"launches_lr_streamed": lr_stream_k1.get((Rf, Rt, pure), 0),
                       "launches_multi_lr": multi_lr_by_bucket.get((Rf, Rt, pure), 0)})
-            kernels.append(dict(
-                name=(f"rank_mi_tile[Rf={Rf},Rt={Rt},"
-                      f"{'pure' if pure else 'general'},S={row['S']}]"),
-                route="cuda",
-                source="ldweaver_tpu_torch/csrc/rank_mi.cu",
-                replaces=("ldweaver_tpu/parallel/fast_sweep.py:223" if pure
-                          else "ldweaver_tpu/ops/pallas_rank_mi.py:23"),
-                launches=(by_bucket if rows is k1_slice else lr_k1).get((Rf, Rt, pure), 0),
-                **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                       "bound_by", "bound_frac", "library_ms")},
-                **extra,
-            ))
-    kernels.append(dict(
-        name="fused_tile_stage1[Rf=2,Rt=2,pure,S=1024]", route="cuda",
-        source="ldweaver_tpu_torch/csrc/fused_tile.cu",
-        replaces="ldweaver_tpu/ops/pallas_fused_tile.py:42",
-        launches=lr["k2_launches"], launches_lr_streamed=lr["stream_k2_launches"],
-        launches_multi_lr=multi_k2,
-        **k2_row,
-    ))
+            kernels.append(k1_line(
+                row, (by_bucket if rows is k1_slice else lr_k1).get((Rf, Rt, pure), 0),
+                **extra))
+    kernels.append(k2_line(k2_row, lr["k2_launches"],
+                           launches_lr_streamed=lr["stream_k2_launches"],
+                           launches_multi_lr=multi_k2))
     k3_by_shape = dict(k3_by_shape)
     k3_by_shape[SHARDED_B, SHARDED_B] = k3_sharded  # the sharded sweep's tile
     unmeasured = set(k3_by_shape) - set(k3_rows)
@@ -1838,15 +2028,23 @@ def main():
         raise RuntimeError(f"K3 launched at tile shapes not measured: {sorted(unmeasured)}")
     for (F, T), row in k3_rows.items():
         sharded = (F, T) == (SHARDED_B, SHARDED_B)
-        kernels.append(dict(
-            name=f"compat_mi_tile[{F}x{T},S={S}]", route="cuda",
-            source="ldweaver_tpu_torch/csrc/compat_mi.cu",
-            replaces="ldweaver_tpu/ops/pallas_mi.py:28",
-            launches=k3_by_shape.get((F, T), 0),
-            **({"launches_multi_sharded": multi_k3} if sharded else {}),
-            **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                   "bound_by", "bound_frac", "library_ms")},
-        ))
+        kernels.append(k3_line(
+            row, F, T, k3_by_shape.get((F, T), 0),
+            **({"launches_multi_sharded": multi_k3} if sharded else {})))
+    # t = 1 and 2: K1 and K2 with the launches of the sweep leg at that t,
+    # K3 with those of mi_tile_pallas(n_terms=t) at 512^2
+    for t, trows in terms_rows.items():
+        by = terms_sweep[t]["k1_by_bucket"]
+        unmeasured = set(by) - set(trows["k1"])
+        if unmeasured:
+            raise RuntimeError(f"K1 launched at t={t} in buckets not measured:"
+                               f" {sorted(unmeasured)}")
+        for key, row in trows["k1"].items():
+            kernels.append(k1_line(row, by.get(key, 0)))
+        kernels.append(k2_line(trows["k2"], terms_sweep[t]["k2_launches"]))
+        for (F, T), row in trows["k3"].items():
+            kernels.append(k3_line(row, F, T, trows["k3_host_launches"]
+                                   if (F, T) == (SHARDED_B, SHARDED_B) else 0))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     import torch

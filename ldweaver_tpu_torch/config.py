@@ -58,9 +58,17 @@ class LDWeaverConfig:
 
     # --- compute (device settings in place of ncores/mega_dset)
     max_blk_sz: int = 10000
+    # precision of the on-device contingency matmuls:
+    #   'f32'    - float32 MXU path (default; passes precision=HIGHEST)
+    #   'f64'    - float64 path (CPU oracle / exact-parity runs)
+    # (the JAX package's field and comment; neither package reads it)
+    precision: str = "f32"
     # local devices of the sweep, one shard each (None = every card, one
     # a process under several processes; "cpu": one; support.resolve_devices)
     n_devices: Optional[int] = None
+    # use the fused Pallas kernel where available (falls back to XLA)
+    # (the JAX package's field and comment; neither package reads it)
+    use_pallas: bool = True
     # replicate R's seeded 10% subsampling when estimating the number of LR
     # links (reference: R/computePairwiseMI.R:92-101, set.seed(1988)).  When
     # False, the exact count is computed instead (deterministic and exact).

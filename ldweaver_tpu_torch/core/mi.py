@@ -148,9 +148,11 @@ def mi_tile_jax(
     uq_t,
     neff,
     rxy_compat: bool = True,
+    device_get: bool = True,
     device="cuda",
-) -> np.ndarray:
-    """The compat MI tile in float32 on `device` -> [F, T] float64, op for
+):
+    """The compat MI tile in float32 on `device` -> [F, T] float64 with
+    device_get, else the f32 tensor on the device; op for
     op as the JAX package's `mi_tile_jax`: 25 f32 products at full f32
     precision (TF32 off, as `resolve_device` sets it for every CUDA device:
     the counterpart of XLA's Precision.HIGHEST), then the epilogue.  The
@@ -189,7 +191,7 @@ def mi_tile_jax(
             )
             uq = torch.outer(uqf[:, x], uqt[:, y])
             mi = mi + uq * pxy / den * torch.log(pxy / denom * den)
-    return mi.cpu().numpy().astype(_F64)
+    return mi.cpu().numpy().astype(_F64) if device_get else mi
 
 
 # --------------------------------------------------------------------------

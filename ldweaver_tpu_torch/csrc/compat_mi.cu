@@ -7,9 +7,9 @@
 //   * the weighted contingency counts
 //       n[x][y] = sum_t sum_s wparts[t][s] * 1[code(s, fs+i) == x]
 //                                          * 1[code(s, ts+j) == y]
-//     over the three bf16 terms t of the f32 weights, each term's products
-//     summed into the same f32 counts, as the JAX kernel's bf16 products
-//     are (pallas_mi.py:58-76);
+//     over the first n_terms (1 to 3) bf16 terms t of the f32 weights,
+//     each term's products summed into the same f32 counts, as the JAX
+//     kernel's bf16 products are (pallas_mi.py:58-76);
 //   * the full epilogue (pallas_mi.py:78-100), x outer and y inner:
 //       den   = neff + 0.5 * r_f * r_t
 //       denom = pX*pY + RXY + pX*0.5*r_f + pY*0.5*r_t   (own-site r)
@@ -18,16 +18,20 @@
 //     built on the host by `rxy_term`, never recomputed here).
 //
 // Plane count: every genome carries exactly one code 0..4 at each site, so
-// sum_y n[x][y] = pX[x] and sum_x n[x][y] = pY[y].  The kernel therefore
-// counts only the 16 planes x, y in 0..3 and closes row 4 and column 4 by
-// the marginals, as K1 does for ranks.  Code 4 (N) and codes outside 0..4
+// sum_y n[x][y] = pXc[x] and sum_x n[x][y] = pYc[y], the allele counts
+// under the same summed weight terms.  The kernel therefore counts only the
+// 16 planes x, y in 0..3 and closes row 4 and column 4 by those counted
+// marginals (pxc / pyc), as K1 does for ranks.  They are not the epilogue's
+// pX / pY: the JAX kernel counts all 25 planes over the terms but takes its
+// marginals from the f32 weights, and below three terms the two differ by
+// the bf16 rounding of the weights.  Code 4 (N) and codes outside 0..4
 // match no counted plane; the wrapper passes real codes only.
 //
 // What bounds it on an H100 SXM (4000 x 4000 tile, S = 616): the 16
-// count planes as bf16 tensor-core contractions over 3 weight terms,
-// 16 * 2 * F*T * 3S = 946 GFLOP -> 0.957 ms at 989 TFLOP/s; the bytes (the
-// RXY tile in and the MI tile out, 128 MB) take 38 us.  So it is bound by
-// operations.
+// count planes as bf16 tensor-core contractions over n_terms weight terms,
+// 16 * 2 * F*T * n_terms * S = 946 GFLOP at three terms -> 0.957 ms at 989
+// TFLOP/s (0.319 ms at one); the bytes (the RXY tile in and the MI tile
+// out, 128 MB) take 38 us.  So it is bound by operations.
 //
 // Design.  The counts are the contraction the port's MI tile kernels
 // share, mma_planes::Planes<4, 4> (mma_planes.cuh), the instantiation of
@@ -64,14 +68,17 @@ static_assert(P::BN == kTile, "square block tile");
 __global__ void __launch_bounds__(kThreads, mma_planes::kBlocksPerSM)
 compat_mi_kernel(const uint8_t* __restrict__ codes, long long ld,
                  long long fs, long long ts, int nf, int nt, int S,
-                 const uint16_t* __restrict__ wparts,
+                 const uint16_t* __restrict__ wparts, int n_terms,
                  const float* __restrict__ px, const float* __restrict__ py,
                  const float* __restrict__ r_f, const float* __restrict__ r_t,
                  const float* __restrict__ uq_f, const float* __restrict__ uq_t,
                  float neff, const float* __restrict__ rxy,
+                 const float* __restrict__ pxc, const float* __restrict__ pyc,
                  float* __restrict__ out, bool vec) {
   __shared__ float s_px[kA][kTile];
   __shared__ float s_py[kA][kTile];
+  __shared__ float s_pxc[kC][kTile];
+  __shared__ float s_pyc[kA][kTile];
   __shared__ float s_uf[kA][kTile];
   __shared__ float s_ut[kA][kTile];
   __shared__ float s_rf[kTile];
@@ -88,6 +95,8 @@ compat_mi_kernel(const uint8_t* __restrict__ codes, long long ld,
     s_uf[x][c] = in_f ? uq_f[(long long)x * nf + row0 + c] : 0.f;
     s_py[x][c] = in_t ? py[(long long)x * nt + col0 + c] : 0.f;
     s_ut[x][c] = in_t ? uq_t[(long long)x * nt + col0 + c] : 0.f;
+    if (x < kC) s_pxc[x][c] = in_f ? pxc[(long long)x * nf + row0 + c] : 0.f;
+    s_pyc[x][c] = in_t ? pyc[(long long)x * nt + col0 + c] : 0.f;
   }
   for (int c = tid; c < kTile; c += kThreads) {
     s_rf[c] = row0 + c < nf ? r_f[row0 + c] : 0.f;
@@ -97,7 +106,8 @@ compat_mi_kernel(const uint8_t* __restrict__ codes, long long ld,
   // the 16 counted planes of the block tile, left in shared memory; its
   // barriers make the marginals above visible
   extern __shared__ uint4 planes_smem[];
-  P::run(planes_smem, codes, ld, fs, ts, row0, col0, nf, nt, S, wparts, vec);
+  P::run(planes_smem, codes, ld, fs, ts, row0, col0, nf, nt, S, wparts,
+         n_terms, vec);
 
   // one output a thread at a time, neighbouring threads on neighbouring
   // columns
@@ -115,14 +125,14 @@ compat_mi_kernel(const uint8_t* __restrict__ codes, long long ld,
         cnt[x][y] = P::count(planes_smem, x, y, li, lj);
         s = s + cnt[x][y];
       }
-      cnt[x][kC] = s_px[x][li] - s;
+      cnt[x][kC] = s_pxc[x][li] - s;
     }
 #pragma unroll
     for (int y = 0; y < kA; ++y) {
       float s = 0.f;
 #pragma unroll
       for (int x = 0; x < kC; ++x) s = s + cnt[x][y];
-      cnt[kC][y] = s_py[y][lj] - s;
+      cnt[kC][y] = s_pyc[y][lj] - s;
     }
     // pallas_mi.py:80-99
     const float rf = s_rf[li];
@@ -152,15 +162,19 @@ compat_mi_kernel(const uint8_t* __restrict__ codes, long long ld,
 
 extern "C" {
 
-// Launch K3 on `stream` for one [nf, nt] tile.  px, py, uq_f, uq_t are
-// [5, n] f32; rxy is the [nf, nt] f32 RXY tile.  Returns the CUDA error of
-// the launch (0 on success).
+// Launch K3 on `stream` for one [nf, nt] tile over the n_terms rows of
+// wparts [n_terms, S].  px, py, uq_f, uq_t, pxc, pyc are [5, n] f32 (pxc /
+// pyc: the allele counts under the summed terms, for the closure); rxy is
+// the [nf, nt] f32 RXY tile.  Returns the CUDA error of the launch (0 on
+// success), or -1 when n_terms is outside 1..3.
 int ldw_compat_mi_tile(const void* codes, long long ld, long long fs,
                        long long ts, int nf, int nt, int S,
-                       const void* wparts, const void* px, const void* py,
-                       const void* r_f, const void* r_t, const void* uq_f,
-                       const void* uq_t, float neff, const void* rxy,
+                       const void* wparts, int n_terms, const void* px,
+                       const void* py, const void* r_f, const void* r_t,
+                       const void* uq_f, const void* uq_t, float neff,
+                       const void* rxy, const void* pxc, const void* pyc,
                        void* out, void* stream) {
+  if (n_terms < 1 || n_terms > mma_planes::kTerms) return -1;
   const dim3 grid((nt + kTile - 1) / kTile, (nf + kTile - 1) / kTile);
   const bool vec = mma_planes::vec_ok(codes, ld, fs, ts, wparts, S);
   constexpr int smem = P::kSmemBytes;
@@ -170,10 +184,12 @@ int ldw_compat_mi_tile(const void* codes, long long ld, long long fs,
   if (err != cudaSuccess) return static_cast<int>(err);
   compat_mi_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(codes), ld, fs, ts, nf, nt, S,
-      static_cast<const uint16_t*>(wparts), static_cast<const float*>(px),
-      static_cast<const float*>(py), static_cast<const float*>(r_f),
+      static_cast<const uint16_t*>(wparts), n_terms,
+      static_cast<const float*>(px), static_cast<const float*>(py),
+      static_cast<const float*>(r_f),
       static_cast<const float*>(r_t), static_cast<const float*>(uq_f),
       static_cast<const float*>(uq_t), neff, static_cast<const float*>(rxy),
+      static_cast<const float*>(pxc), static_cast<const float*>(pyc),
       static_cast<float*>(out), vec);
   return static_cast<int>(cudaGetLastError());
 }

@@ -11,9 +11,10 @@
 //   * the single count plane
 //       c00 = sum_t sum_s wparts[t][s] * 1[code(s, fs+i) == 0]
 //                                      * 1[code(s, ts+j) == 0]
-//     over the three bf16 terms t of the f32 weights, each term's products
-//     summed into the same f32 counts, as the JAX kernel's three bf16
-//     dot_generals are (pallas_fused_tile.py:84-92);
+//     over the first n_terms (1 to 3) bf16 terms t of the f32 weights, each
+//     term's products summed into the same f32 counts, as the JAX kernel's
+//     n_terms bf16 dot_generals are (pallas_fused_tile.py:84-92); the
+//     marginals and neff stay exact f32 sums of the weights;
 //   * the closure c01 = pX0 - c00, c10 = pY0 - c00, c11 = pY1 - c01 and
 //     the telescoped epilogue in the JAX cell order
 //     (pallas_fused_tile.py:119-140);
@@ -26,10 +27,11 @@
 // Only the [nf, nt/128] (value, column) pairs reach device memory.
 //
 // What bounds it on an H100 SXM (B = 4096, S = 1024 genomes): the count
-// plane as a bf16 tensor-core contraction over 3 weight terms,
-// 2 * B^2 * 3S = 103 GFLOP -> 0.104 ms at 989 TFLOP/s; the bytes (codes,
-// weights, marginals, positions, 2 MB of candidates) take ~3 us.  So it is
-// bound by operations.
+// plane as a bf16 tensor-core contraction over n_terms weight terms,
+// 2 * B^2 * n_terms * S = 103 GFLOP at three terms -> 0.104 ms at 989
+// TFLOP/s (0.035 ms at one); the bytes (codes, weights, marginals,
+// positions, 2 MB of candidates) take ~3 us.  So it is bound by
+// operations.
 //
 // Design.  The count plane is the contraction the port's MI tile kernels
 // share, mma_planes::Planes<1, 1> (mma_planes.cuh): cp.async-staged u8
@@ -70,7 +72,7 @@ constexpr int kRowsPerWarp = kRows / (kThreads / 32);
 __global__ void __launch_bounds__(kThreads, mma_planes::kBlocksPerSM)
 fused_tile_kernel(const uint8_t* __restrict__ codes, long long ld,
                   long long fs, long long ts, int nf, int nt, int S,
-                  const uint16_t* __restrict__ wparts,
+                  const uint16_t* __restrict__ wparts, int n_terms,
                   const float* __restrict__ px, const float* __restrict__ py,
                   const int* __restrict__ pos_f, const int* __restrict__ pos_t,
                   const uint8_t* __restrict__ val_f,
@@ -123,7 +125,8 @@ fused_tile_kernel(const uint8_t* __restrict__ codes, long long ld,
   // c00 of the block's 128 x 128 tile, left in shared memory; its barriers
   // make the terms above visible
   extern __shared__ uint4 planes_smem[];
-  P::run(planes_smem, codes, ld, fs, ts, row0, col0, nf, nt, S, wparts, vec);
+  P::run(planes_smem, codes, ld, fs, ts, row0, col0, nf, nt, S, wparts,
+         n_terms, vec);
 
   const int warp = tid / 32, lane = tid % 32;
   const float den_s = neff + 2.0f;
@@ -191,17 +194,20 @@ fused_tile_kernel(const uint8_t* __restrict__ codes, long long ld,
 extern "C" {
 
 // Launch K2 on `stream` for one [nf, nt] tile -> [nf, nt/128] (value,
-// in-tile column) candidates.  `val_f` / `val_t` are bytes (0 or 1).
-// Returns the CUDA error of the launch (0 on success), or -1 when nt is
-// not a multiple of 128.
+// in-tile column) candidates, over the n_terms rows of wparts
+// [n_terms, S].  `val_f` / `val_t` are bytes (0 or 1).  Returns the CUDA
+// error of the launch (0 on success), or -1 when nt is not a multiple of
+// 128 or n_terms is outside 1..3.
 int ldw_fused_tile_stage1(const void* codes, long long ld, long long fs,
                           long long ts, int nf, int nt, int S,
-                          const void* wparts, const void* px, const void* py,
+                          const void* wparts, int n_terms, const void* px,
+                          const void* py,
                           const void* pos_f, const void* pos_t,
                           const void* val_f, const void* val_t, float neff,
                           int same, int g, float half_g, float sr_dist,
                           void* vals, void* cols, void* stream) {
   if (nt % kChunk != 0 || nf <= 0 || nt <= 0) return -1;
+  if (n_terms < 1 || n_terms > mma_planes::kTerms) return -1;
   const dim3 grid(nt / kChunk, (nf + kRows - 1) / kRows);
   const bool vec = mma_planes::vec_ok(codes, ld, fs, ts, wparts, S);
   constexpr int smem = P::kSmemBytes;
@@ -211,8 +217,9 @@ int ldw_fused_tile_stage1(const void* codes, long long ld, long long fs,
   if (err != cudaSuccess) return static_cast<int>(err);
   fused_tile_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(codes), ld, fs, ts, nf, nt, S,
-      static_cast<const uint16_t*>(wparts), static_cast<const float*>(px),
-      static_cast<const float*>(py), static_cast<const int*>(pos_f),
+      static_cast<const uint16_t*>(wparts), n_terms,
+      static_cast<const float*>(px), static_cast<const float*>(py),
+      static_cast<const int*>(pos_f),
       static_cast<const int*>(pos_t), static_cast<const uint8_t*>(val_f),
       static_cast<const uint8_t*>(val_t), neff, same, g, half_g, sr_dist,
       static_cast<float*>(vals), static_cast<int*>(cols), vec);

@@ -8,8 +8,9 @@
 //   c[x][y][i][j] = sum_t sum_s wparts[t][s] * 1[code(s, i) == x]
 //                                            * 1[code(s, j) == y]
 //
-// over the genomes s < S and the three bf16 weight terms t.  It is a GEMM
-// with rows (x, i), columns (y, j) and depth (t, s), computed on
+// over the genomes s < S and the first n_terms (1 to 3) bf16 weight terms
+// t.  It is a GEMM with rows (x, i), columns (y, j) and depth (t, s),
+// computed on
 // mma.sync.m16n8k16 with bf16 operands and f32 accumulation.  Every operand
 // value is exact in bf16 (a weight term or 0 on the A side, 1 or 0 on the B
 // side), so only the f32 sums round.
@@ -17,7 +18,7 @@
 // One 256-thread block (8 warps, 2 along rows x 4 along columns) walks the
 // genomes in chunks of kChunk = 64:
 //   1. cp.async copies the chunk's raw u8 codes of the block's rows and
-//      columns and its three weight terms into shared memory (two stages:
+//      columns and its n_terms weight terms into shared memory (two stages:
 //      chunk c+1 is in flight while chunk c is expanded and multiplied).
 //      The 16-byte copies need 16-byte aligned rows; otherwise (`vec` is
 //      false) the same stage is filled by plain loads.  Genomes past S and
@@ -34,7 +35,13 @@
 //      the weighted A operand of term t in registers as mask & (w_t pair):
 //      one AND per register, no weighted tile in shared memory.  The
 //      products accumulate straight into the f32 counts, at most 64
-//      registers a thread.
+//      registers a thread.  The term count is a template parameter of this
+//      mainloop, unrolled whole: `run` picks one of three (1, 2 or 3
+//      terms) once a chunk by the runtime n_terms, the same for the whole
+//      grid, so the three-term loop is the code it was before the count
+//      (a runtime guard inside the unrolled loop ran 3-13% slower at three
+//      terms on an H100).  Fewer terms skip their products, not the
+//      expansion of steps 1-2, which every term shares.
 //   4. The counts go to shared memory over the spent operand tiles, as
 //      float [NX][NY][BM][LDC], where an epilogue reads them (`count`)
 //      with any thread mapping and few live registers.
@@ -60,7 +67,7 @@ constexpr int kThreads = 32 * kWarpsM * kWarpsN;
 constexpr int kBlocksPerSM = 65536 / (128 * kThreads);
 constexpr int kChunk = 64;  // genomes per chunk (m16n8k16 k-steps of 16)
 constexpr int kSteps = kChunk / 16;
-constexpr int kTerms = 3;   // bf16 weight terms
+constexpr int kTerms = 3;   // bf16 weight terms at most
 constexpr int kRow = kChunk + 8;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -157,15 +164,17 @@ struct Planes {
     return (warp % kWarpsN) * WN + 8 * ni + 2 * (lane % 4) + e;
   }
 
-  // Stage the raw codes and weights of genomes s0..s0+kChunk.
+  // Stage the raw codes and the n_terms weight rows of genomes
+  // s0..s0+kChunk (the rows past n_terms stay unwritten and unread).
   __device__ static void load(Smem& sm, int st, const uint8_t* codes,
                               long long ld, long long f0, long long t0,
                               int nf_left, int nt_left, int S,
-                              const uint16_t* wparts, int s0, bool vec) {
+                              const uint16_t* wparts, int n_terms, int s0,
+                              bool vec) {
     const int tid = threadIdx.x;
     if (vec) {
       constexpr int SF = BM / 16, ST = BN / 16, SW = kChunk / 8;
-      constexpr int NSEG = kChunk * (SF + ST) + kTerms * SW;
+      const int NSEG = kChunk * (SF + ST) + n_terms * SW;
       // not unrolled: the unrolled address arithmetic is chunk-invariant,
       // and hoisted out of the chunk loop it would take the registers the
       // counts need
@@ -212,7 +221,7 @@ struct Planes {
           sm.raw_t[st][s][cc] = v;
       }
 #pragma unroll 1
-      for (int k = tid; k < kTerms * kChunk; k += kThreads) {
+      for (int k = tid; k < n_terms * kChunk; k += kThreads) {
         const int t = k / kChunk, s = k % kChunk;
         sm.raw_w[st][t][s] =
             s0 + s < S ? wparts[(long long)t * S + s0 + s] : uint16_t(0);
@@ -245,7 +254,9 @@ struct Planes {
     }
   }
 
-  // Multiply one expanded chunk into acc, one k-step at a time.
+  // Multiply one expanded chunk into acc, one k-step at a time, over the
+  // first T weight terms.
+  template <int T>
   __device__ static void multiply(const Smem& sm, int st, Acc& acc, int warp,
                                   int lane) {
     const int wm0 = (warp / kWarpsN) * WM, wn0 = (warp % kWarpsN) * WN;
@@ -281,7 +292,7 @@ struct Planes {
           ldmatrix_x4(a, &sm.a[x][wm0 + 16 * mi + (lane & 15)]
                                [16 * ks + (lane >> 4) * 8]);
 #pragma unroll
-          for (int t = 0; t < kTerms; ++t) {
+          for (int t = 0; t < T; ++t) {
             const uint32_t lo = ws[t * (kChunk / 2) + 8 * ks];
             const uint32_t hi = ws[t * (kChunk / 2) + 8 * ks + 4];
             const uint32_t aw[4] = {a[0] & lo, a[1] & lo, a[2] & hi, a[3] & hi};
@@ -295,7 +306,8 @@ struct Planes {
     }
   }
 
-  // The whole contraction of one block: the NX x NY count planes of rows
+  // The whole contraction of one block over the n_terms (1 to 3) rows of
+  // `wparts` [n_terms, S]: the NX x NY count planes of rows
   // row0.. and columns col0.. of the tile, left in `smem` (kSmemBytes of
   // dynamic shared memory) for `count`.  Called by every thread of the
   // block; shared-memory writes made before the call are visible after
@@ -303,7 +315,7 @@ struct Planes {
   __device__ static void run(void* smem, const uint8_t* codes, long long ld,
                              long long fs, long long ts, int row0, int col0,
                              int nf, int nt, int S, const uint16_t* wparts,
-                             bool vec) {
+                             int n_terms, bool vec) {
     Smem& sm = *static_cast<Smem*>(smem);
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
     Acc acc;
@@ -321,7 +333,8 @@ struct Planes {
     const int nf_left = nf - row0, nt_left = nt - col0;
     const int nchunks = (S + kChunk - 1) / kChunk;
     if (nchunks > 0)
-      load(sm, 0, codes, ld, f0, t0, nf_left, nt_left, S, wparts, 0, vec);
+      load(sm, 0, codes, ld, f0, t0, nf_left, nt_left, S, wparts, n_terms, 0,
+           vec);
     for (int c = 0; c < nchunks; ++c) {
       const int st = c & 1;
       cp_async_wait_all();
@@ -329,11 +342,16 @@ struct Planes {
       __syncthreads();
       if (c + 1 < nchunks)
         load(sm, st ^ 1, codes, ld, f0, t0, nf_left, nt_left, S, wparts,
-             (c + 1) * kChunk, vec);
+             n_terms, (c + 1) * kChunk, vec);
       expand_side<NX, BM>(sm.raw_f[st], sm.a, 0xFFFFu);
       expand_side<NY, BN>(sm.raw_t[st], sm.b, 0x3F80u);
       __syncthreads();
-      multiply(sm, st, acc, warp, lane);
+      if (n_terms == 1)
+        multiply<1>(sm, st, acc, warp, lane);
+      else if (n_terms == 2)
+        multiply<2>(sm, st, acc, warp, lane);
+      else
+        multiply<kTerms>(sm, st, acc, warp, lane);
     }
     // every warp is done with the operands: the counts take their place
     __syncthreads();

@@ -9,7 +9,9 @@
 //   * the (RF-1)(RT-1) weighted contingency counts
 //       c[x][y] = sum_t sum_s wparts[t][s] * 1[code(s, fs+i) == x]
 //                                           * 1[code(s, ts+j) == y]
-//     over the three bf16 terms t of the f32 Hamming weights,
+//     over the first n_terms (1 to 3) bf16 terms t of the f32 Hamming
+//     weights (`precision_terms` of the JAX sweep; the marginals px / py
+//     and neff stay exact f32 sums of the weights whatever n_terms is),
 //   * the last rank row and column by marginal closure from px / py,
 //   * the gated RF*RT-term log epilogue (general) or, for pure buckets, the
 //     telescoped entropy form with precomputed row / column terms.
@@ -29,10 +31,11 @@
 // marginals.
 //
 // What bounds it on an H100 SXM (B = 4096): the contraction,
-// 2 * B^2 * 3S per plane at 989 TFLOP/s: 62.7 us a plane at S = 616 and
-// 104.2 us at S = 1024 (the LR sweep's (2,3) buckets: 0.2085 ms); writing
-// the 64 MB f32 tile takes 20 us at 3.35 TB/s.  So every counted bucket is
-// bound by operations.
+// 2 * B^2 * n_terms * S per plane at 989 TFLOP/s: at three terms 62.7 us
+// a plane at S = 616 and 104.2 us at S = 1024 (the LR sweep's (2,3)
+// buckets: 0.2085 ms), a third of that at one term; writing the 64 MB f32
+// tile takes 20 us at 3.35 TB/s.  So every counted bucket is bound by
+// operations.
 //
 // Why mma.sync and not wgmma: the warp-level instruction's fragment layouts
 // are fixed by the PTX ISA (ldmatrix delivers them straight from padded
@@ -61,7 +64,7 @@ template <int RF, int RT, bool PURE>
 __global__ void __launch_bounds__(kThreads, mma_planes::kBlocksPerSM)
 rank_mi_kernel(const uint8_t* __restrict__ codes, long long ld, long long fs,
                long long ts, int nf, int nt, int S,
-               const uint16_t* __restrict__ wparts,
+               const uint16_t* __restrict__ wparts, int n_terms,
                const float* __restrict__ px, const float* __restrict__ py,
                const float* __restrict__ r_f, const float* __restrict__ r_t,
                float neff, float* __restrict__ out, bool vec) {
@@ -121,7 +124,8 @@ rank_mi_kernel(const uint8_t* __restrict__ codes, long long ld, long long fs,
 
   extern __shared__ uint4 planes_smem[];
   if constexpr (COUNT)
-    P::run(planes_smem, codes, ld, fs, ts, row0, col0, nf, nt, S, wparts, vec);
+    P::run(planes_smem, codes, ld, fs, ts, row0, col0, nf, nt, S, wparts,
+           n_terms, vec);
 
   // one output a thread at a time, neighbouring threads on neighbouring
   // columns
@@ -202,9 +206,9 @@ rank_mi_kernel(const uint8_t* __restrict__ codes, long long ld, long long fs,
 
 template <int RF, int RT, bool PURE>
 int launch(const uint8_t* codes, long long ld, long long fs, long long ts,
-           int nf, int nt, int S, const uint16_t* wparts, const float* px,
-           const float* py, const float* r_f, const float* r_t, float neff,
-           float* out, cudaStream_t stream) {
+           int nf, int nt, int S, const uint16_t* wparts, int n_terms,
+           const float* px, const float* py, const float* r_f,
+           const float* r_t, float neff, float* out, cudaStream_t stream) {
   constexpr bool COUNT = RF >= 2 && RT >= 2;
   using P = mma_planes::Planes<COUNT ? RF - 1 : 1, COUNT ? RT - 1 : 1>;
   // the telescoped epilogue needs both sides polymorphic (fast_sweep.py:223)
@@ -219,8 +223,8 @@ int launch(const uint8_t* codes, long long ld, long long fs, long long ts,
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   kernel<<<grid, kThreads, smem, stream>>>(codes, ld, fs, ts, nf, nt, S,
-                                           wparts, px, py, r_f, r_t, neff,
-                                           out, vec);
+                                           wparts, n_terms, px, py, r_f, r_t,
+                                           neff, out, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -228,13 +232,15 @@ int launch(const uint8_t* codes, long long ld, long long fs, long long ts,
 
 extern "C" {
 
-// Launch K1 on `stream` for one [nf, nt] tile.  Returns the CUDA error of
-// the launch (0 on success), or -1 when (Rf, Rt) is outside 1..5.
+// Launch K1 on `stream` for one [nf, nt] tile over the n_terms rows of
+// wparts [n_terms, S].  Returns the CUDA error of the launch (0 on
+// success), or -1 when (Rf, Rt) is outside 1..5 or n_terms outside 1..3.
 int ldw_rank_mi_tile(int Rf, int Rt, int pure, const void* codes,
                      long long ld, long long fs, long long ts, int nf, int nt,
-                     int S, const void* wparts, const void* px, const void* py,
-                     const void* r_f, const void* r_t, float neff, void* out,
-                     void* stream) {
+                     int S, const void* wparts, int n_terms, const void* px,
+                     const void* py, const void* r_f, const void* r_t,
+                     float neff, void* out, void* stream) {
+  if (n_terms < 1 || n_terms > mma_planes::kTerms) return -1;
   const auto* c = static_cast<const uint8_t*>(codes);
   const auto* w = static_cast<const uint16_t*>(wparts);
   const auto* pxp = static_cast<const float*>(px);
@@ -245,10 +251,10 @@ int ldw_rank_mi_tile(int Rf, int Rt, int pure, const void* codes,
   auto st = static_cast<cudaStream_t>(stream);
 #define LDW_CASE(A, B)                                                     \
   case (A) * 8 + (B):                                                      \
-    return pure ? launch<A, B, true>(c, ld, fs, ts, nf, nt, S, w, pxp, pyp, \
-                                     rfp, rtp, neff, o, st)                \
-                : launch<A, B, false>(c, ld, fs, ts, nf, nt, S, w, pxp,    \
-                                      pyp, rfp, rtp, neff, o, st);
+    return pure ? launch<A, B, true>(c, ld, fs, ts, nf, nt, S, w, n_terms, \
+                                     pxp, pyp, rfp, rtp, neff, o, st)      \
+                : launch<A, B, false>(c, ld, fs, ts, nf, nt, S, w, n_terms,\
+                                      pxp, pyp, rfp, rtp, neff, o, st);
 #define LDW_ROW(A) \
   LDW_CASE(A, 1) LDW_CASE(A, 2) LDW_CASE(A, 3) LDW_CASE(A, 4) LDW_CASE(A, 5)
   switch (Rf * 8 + Rt) {

@@ -12,7 +12,9 @@ source note in `csrc/fused_tile.cu` states the design and its bound.
 Both versions read the tile's rank codes straight from the resident
 SEQUENCE-MAJOR code tensor `codes` [nseq, nsnp_pad] u8 at column offsets
 `fs` (rows) and `ts` (columns), and take
-  wparts [3, nseq] bf16      the three bf16 terms of the f32 weights,
+  wparts [t, nseq] bf16      the first t (1 to 3) bf16 terms of the f32
+                             weights (rows: the JAX kernel's seq-major
+                             [S, n_terms] transposed),
   px [2, nf], py [2, nt] f32 weighted allele-rank marginals,
   pos_f [nf], pos_t [nt] i32 genome positions,
   val_f [nf], val_t [nt]     bool, False on pad sites,
@@ -30,8 +32,8 @@ import torch
 
 from ldweaver_tpu_torch.ops import cuda_build
 from ldweaver_tpu_torch.ops.rank_mi import (
-    N_TERMS,
     LaunchCounter,
+    kernel_terms,
     rank_mi_tile_reference,
 )
 
@@ -42,7 +44,8 @@ K2 = LaunchCounter()
 _ARGTYPES = [
     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
     ctypes.c_int, ctypes.c_int, ctypes.c_int,  # nf, nt, S
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # wparts, px, py
+    ctypes.c_void_p, ctypes.c_int,  # wparts, n_terms
+    ctypes.c_void_p, ctypes.c_void_p,  # px, py
     ctypes.c_void_p, ctypes.c_void_p,  # pos_f, pos_t
     ctypes.c_void_p, ctypes.c_void_p,  # val_f, val_t
     ctypes.c_float, ctypes.c_int, ctypes.c_int,  # neff, same, g
@@ -65,6 +68,7 @@ def fused_tile_stage1(codes, fs: int, ts: int, nf: int, nt: int, wparts, px,
                       same_block: bool, *, g: int, sr_dist: int):
     """Stage-1 candidates of one (2, 2, pure) tile: vals [nf, nt/128] f32
     and in-tile cols [nf, nt/128] i32."""
+    n_terms = kernel_terms(wparts, "fused_tile_stage1")
     if codes.device.type == "cpu":
         return fused_tile_stage1_reference(
             codes, fs, ts, nf, nt, wparts, px, py, pos_f, pos_t, val_f,
@@ -76,7 +80,7 @@ def fused_tile_stage1(codes, fs: int, ts: int, nf: int, nt: int, wparts, px,
     dev = codes.device
     checks = (
         (codes, torch.uint8, (S, ld)),
-        (wparts, torch.bfloat16, (N_TERMS, S)),
+        (wparts, torch.bfloat16, (n_terms, S)),
         (px, torch.float32, (2, nf)),
         (py, torch.float32, (2, nt)),
         (pos_f, torch.int32, (nf,)),
@@ -103,7 +107,7 @@ def fused_tile_stage1(codes, fs: int, ts: int, nf: int, nt: int, wparts, px,
     lib = _library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.ldw_fused_tile_stage1(
-        codes.data_ptr(), ld, fs, ts, nf, nt, S, wparts.data_ptr(),
+        codes.data_ptr(), ld, fs, ts, nf, nt, S, wparts.data_ptr(), n_terms,
         px.data_ptr(), py.data_ptr(), pos_f.data_ptr(), pos_t.data_ptr(),
         val_f.data_ptr(), val_t.data_ptr(), float(neff), int(bool(same_block)),
         int(g), 0.5 * g, float(sr_dist), vals.data_ptr(), cols.data_ptr(),

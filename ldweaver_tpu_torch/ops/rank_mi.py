@@ -9,13 +9,15 @@ The source note in `csrc/rank_mi.cu` states the design and its bound.
 Both versions read the tile's rank codes straight from the resident
 SEQUENCE-MAJOR code tensor `codes` [nseq, nsnp_pad] u8 at column offsets
 `fs` (rows) and `ts` (columns), and take
-  wparts [3, nseq] bf16  the three bf16 terms of the f32 Hamming weights,
+  wparts [t, nseq] bf16  the first t (1 to 3) bf16 terms of the f32
+                         Hamming weights (`n_terms` of the JAX kernel),
   px [Rf, nf] f32        weighted allele-rank marginals of the rows,
   py [Rt, nt] f32        the same for the columns,
   r_f [nf], r_t [nt] f32 distinct-allele counts,
   neff                   sum of the weights (rounded to f32),
 and return the [nf, nt] f32 MI tile.  A CPU tensor goes to the plain
 version; a CUDA tensor to the kernel (or the call raises).
+`mi_tile_rank_pallas` is the JAX wrapper's host-facing counterpart.
 """
 
 from __future__ import annotations
@@ -23,11 +25,13 @@ from __future__ import annotations
 import collections
 import ctypes
 
+import numpy as np
 import torch
 
 from ldweaver_tpu_torch.ops import cuda_build
+from ldweaver_tpu_torch.support import resolve_device
 
-N_TERMS = 3
+N_TERMS = 3  # bf16 weight terms a kernel sums at most
 
 
 class LaunchCounter:
@@ -49,7 +53,8 @@ _ARGTYPES = [
     ctypes.c_int, ctypes.c_int, ctypes.c_int,  # Rf, Rt, pure
     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
     ctypes.c_int, ctypes.c_int, ctypes.c_int,  # nf, nt, S
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # wparts, px, py
+    ctypes.c_void_p, ctypes.c_int,  # wparts, n_terms
+    ctypes.c_void_p, ctypes.c_void_p,  # px, py
     ctypes.c_void_p, ctypes.c_void_p,  # r_f, r_t
     ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,  # neff, out, stream
 ]
@@ -64,10 +69,21 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+def kernel_terms(wparts, what: str) -> int:
+    """The weight terms t of a [t, S] `wparts` a kernel sums: 1 to 3, else
+    ValueError."""
+    t = wparts.shape[0] if wparts.dim() == 2 else 0
+    if not 1 <= t <= N_TERMS:
+        raise ValueError(f"{what}: wparts must hold 1 to {N_TERMS} weight terms,"
+                         f" got shape {tuple(wparts.shape)}")
+    return t
+
+
 def rank_mi_tile(codes, fs: int, ts: int, nf: int, nt: int, wparts, px, py,
                  r_f, r_t, neff: float, Rf: int, Rt: int,
                  pure: bool) -> torch.Tensor:
     """One [nf, nt] MI tile for the static bucket (Rf, Rt, pure)."""
+    n_terms = kernel_terms(wparts, "rank_mi_tile")
     if codes.device.type == "cpu":
         return rank_mi_tile_reference(
             codes, fs, ts, nf, nt, wparts, px, py, r_f, r_t, neff, Rf, Rt,
@@ -79,7 +95,7 @@ def rank_mi_tile(codes, fs: int, ts: int, nf: int, nt: int, wparts, px, py,
     dev = codes.device
     checks = (
         (codes, torch.uint8, (S, ld)),
-        (wparts, torch.bfloat16, (N_TERMS, S)),
+        (wparts, torch.bfloat16, (n_terms, S)),
         (px, torch.float32, (Rf, nf)),
         (py, torch.float32, (Rt, nt)),
         (r_f, torch.float32, (nf,)),
@@ -104,7 +120,7 @@ def rank_mi_tile(codes, fs: int, ts: int, nf: int, nt: int, wparts, px, py,
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.ldw_rank_mi_tile(
         Rf, Rt, int(bool(pure)), codes.data_ptr(), ld, fs, ts, nf, nt, S,
-        wparts.data_ptr(), px.data_ptr(), py.data_ptr(), r_f.data_ptr(),
+        wparts.data_ptr(), n_terms, px.data_ptr(), py.data_ptr(), r_f.data_ptr(),
         r_t.data_ptr(), float(neff), out.data_ptr(), stream,
     )
     cuda_build.check(lib, rc, "rank_mi_tile")
@@ -117,8 +133,9 @@ def rank_mi_tile_reference(codes, fs: int, ts: int, nf: int, nt: int, wparts,
                            px, py, r_f, r_t, neff: float, Rf: int, Rt: int,
                            pure: bool, dtype=torch.float32) -> torch.Tensor:
     """Plain PyTorch K1, op for op as `fast_sweep._rank_tile_mi` of the JAX
-    package: per (x, y) rank pair one product of the [nf, 3S] weighted
-    one-hot (the three bf16 terms side by side) with the [nt, 3S] one-hot,
+    package: per (x, y) rank pair one product of the [nf, tS] weighted
+    one-hot (the t bf16 terms of `wparts` side by side) with the [nt, tS]
+    one-hot,
     in f32 (bf16 values are exact in f32, so this equals a bf16 product
     with f32 accumulation), then marginal closure and the epilogue.  With
     dtype=torch.float64 every step runs in float64 instead: the exact
@@ -144,14 +161,13 @@ def rank_mi_tile_reference(codes, fs: int, ts: int, nf: int, nt: int, wparts,
         wp = wparts.to(dtype)
         zero = torch.zeros((), dtype=dtype, device=dev)
         rhs_cat = [
-            torch.cat([(ct == y).to(dtype)] * N_TERMS, dim=1)
+            torch.cat([(ct == y).to(dtype)] * len(wp), dim=1)
             for y in range(Rt - 1)
         ]
         for x in range(Rf - 1):
             onehot_f = cf == x
             lhs_cat = torch.cat(
-                [torch.where(onehot_f, wp[t][None, :], zero)
-                 for t in range(N_TERMS)],
+                [torch.where(onehot_f, wp_t[None, :], zero) for wp_t in wp],
                 dim=1,
             )
             for y in range(Rt - 1):
@@ -205,3 +221,50 @@ def rank_mi_tile_reference(codes, fs: int, ts: int, nf: int, nt: int, wparts,
             uq = torch.outer(gate_x, (y < r_t).to(dtype))
             mi = mi + uq * pxy / den * torch.log(pxy / denom * den)
     return mi
+
+
+def pair_codes(codes_f, codes_t, device):
+    """One SEQUENCE-MAJOR u8 code tensor on `device` holding the site-major
+    row codes [F, S] from column 0 and the column codes [T, S] from the
+    next multiple of 16 -> (codes, ts).  Its rows are a multiple of 16 long
+    (the zero columns between are read by no tile), so a kernel stages
+    every tile with 16-byte copies."""
+    F, S = codes_f.shape
+    T = codes_t.shape[0]
+    ts = -(-F // 16) * 16
+    codes = np.zeros((S, ts + -(-T // 16) * 16), np.uint8)
+    codes[:, :F] = codes_f.T
+    codes[:, ts : ts + T] = codes_t.T
+    return torch.from_numpy(codes).to(device), ts
+
+
+def mi_tile_rank_pallas(rank_codes_f: np.ndarray, rank_codes_t: np.ndarray,
+                        w: np.ndarray, r_f: np.ndarray, r_t: np.ndarray,
+                        neff: float, n_terms: int = 3, device_get: bool = True,
+                        device="cuda"):
+    """Host-facing K1 with the JAX wrapper's signature and host preparation
+    (pallas_rank_mi.py:183-233): site-major rank codes [F, S] / [T, S], the
+    general epilogue of the bucket (max r_f, max r_t), the `n_terms`-term
+    bf16 split of the f32 weights, f32 marginals from float64 sums.  The
+    TPU tile sizes (`tile_f`, `tile_t`, `chunk_s`) are not parameters: the
+    kernel picks its own.  -> [F, T] float64 with device_get, else the f32
+    tensor on the device.  On device="cpu" the tile comes from the plain
+    version."""
+    from ldweaver_tpu_torch.parallel.fast_sweep import split_terms
+
+    dev = resolve_device(device)
+    F, T = rank_codes_f.shape[0], rank_codes_t.shape[0]
+    Rf, Rt = int(np.asarray(r_f).max()), int(np.asarray(r_t).max())
+    w = np.asarray(w, np.float64)
+    px = np.stack([((rank_codes_f == x) * w).sum(axis=1) for x in range(Rf)])
+    py = np.stack([((rank_codes_t == y) * w).sum(axis=1) for y in range(Rt)])
+    codes, ts = pair_codes(rank_codes_f, rank_codes_t, dev)
+
+    def f32(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+
+    out = rank_mi_tile(
+        codes, 0, ts, F, T, split_terms(w, n_terms).to(dev), f32(px), f32(py),
+        f32(r_f), f32(r_t), float(np.float32(neff)), Rf, Rt, False,
+    )
+    return out.cpu().numpy().astype(np.float64) if device_get else out

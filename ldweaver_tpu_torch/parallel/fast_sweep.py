@@ -16,7 +16,9 @@ block pair has a static (Rf, Rt): a biallelic x biallelic tile needs ONE
 count plane and 4 log terms.  `RankedSnps`, `rank_encode` and `stratify`
 are NumPy copies of the JAX package's; `wparts` and `rank_tile_mi` are the
 PyTorch counterparts of its `_wparts` and `_rank_tile_mi`, the tile itself
-coming from kernel K1 (ops/rank_mi.py).
+coming from kernel K1 (ops/rank_mi.py), and `mi_tile_rank` of its
+host-facing tile.  The counts sum the first t (`precision_terms`, 1 to 3)
+bf16 terms of the weights; the marginals and neff stay exact f32 sums.
 
 The LR-only sweep (`prepare_fast_sweep`, `fast_lr_topk`; the sweep leg of
 the JAX package's bench.py) keeps the rank codes resident on each local
@@ -41,7 +43,8 @@ import numpy as np
 import torch
 
 from ldweaver_tpu_torch.ops.fused_tile import CHUNK, chunk_max, fused_tile_stage1
-from ldweaver_tpu_torch.ops.rank_mi import N_TERMS, rank_mi_tile
+from ldweaver_tpu_torch.ops.rank_mi import N_TERMS, pair_codes, rank_mi_tile
+from ldweaver_tpu_torch.support import resolve_device
 
 
 # --------------------------------------------------------------------------
@@ -132,8 +135,9 @@ def stratify(
 def wparts(w, terms: int = N_TERMS):
     """(w_f32, stacked bf16 split terms [terms, S]) for the contingency
     counts: term k is the round-to-nearest-even bf16 of what the earlier
-    terms left of the f32 weight, so the terms sum to it within ~2^-24
-    relative.  Both are CPU tensors."""
+    terms left of the f32 weight, so the first t terms are the t-term
+    split, and three sum to the weight within ~2^-24 relative.  Both are
+    CPU tensors."""
     w32 = torch.from_numpy(np.asarray(w, np.float32).copy())
     parts = []
     resid = w32.clone()
@@ -142,6 +146,21 @@ def wparts(w, terms: int = N_TERMS):
         parts.append(p)
         resid = resid - p.to(torch.float32)
     return w32, torch.stack(parts)
+
+
+def split_terms(w, terms: int) -> torch.Tensor:
+    """The bf16 weight terms [t, S] (a CPU tensor) that a kernel sums for
+    the JAX package's `terms`-term split of the weights w
+    (`precision_terms`, `n_terms`): the split itself for 1 to 3 terms.
+    Three bf16 terms hold an f32 weight, so the terms past the third are
+    zero: that is checked, and the first three are returned.  A count
+    below one raises ValueError."""
+    if terms < 1:
+        raise ValueError(f"the weight-term count must be at least 1, got {terms}")
+    _, parts = wparts(w, terms)
+    if bool((parts[N_TERMS:] != 0).any()):
+        raise ValueError("weight terms past the third are not zero")
+    return parts[:N_TERMS].contiguous()
 
 
 # --------------------------------------------------------------------------
@@ -181,6 +200,29 @@ def rank_tile_mi(codes, fs: int, ts: int, nf: int, nt: int, w32, parts,
     return rank_mi_tile(
         codes, fs, ts, nf, nt, parts, px, py, r_f, r_t, neff, Rf, Rt, pure,
     )
+
+
+def mi_tile_rank(rank_codes_f: np.ndarray, rank_codes_t: np.ndarray,
+                 w: np.ndarray, r_f: np.ndarray, r_t: np.ndarray, neff: float,
+                 precision_terms: int = 3, device="cuda") -> np.ndarray:
+    """Host-facing rank-compacted tile, the JAX package's `mi_tile_rank`
+    (fast_sweep.py:375-410): site-major rank codes [F, S] / [T, S], the
+    general epilogue of the bucket (max r_f, max r_t), exact f32 marginals
+    and the `precision_terms`-term split -> [F, T] float64 through
+    `rank_tile_mi` (kernel K1; its plain version on device="cpu")."""
+    dev = resolve_device(device)
+    parts = split_terms(w, precision_terms).to(dev)
+    codes, ts = pair_codes(rank_codes_f, rank_codes_t, dev)
+
+    def f32(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+
+    out = rank_tile_mi(
+        codes, 0, ts, rank_codes_f.shape[0], rank_codes_t.shape[0], f32(w),
+        parts, f32(r_f), f32(r_t), float(np.float32(neff)),
+        int(np.asarray(r_f).max()), int(np.asarray(r_t).max()),
+    )
+    return out.cpu().numpy().astype(np.float64)
 
 
 # --------------------------------------------------------------------------
@@ -386,12 +428,14 @@ def uses_fused_tile(key: Tuple[int, int, bool], block: int) -> bool:
 
 def _tile_candidates(state: FastSweepState, bi: int, bj: int,
                      key: Tuple[int, int, bool], sr_dist: int, topk: int,
-                     cols: Optional[Tuple[int, int]] = None, lane: int = 0):
+                     cols: Optional[Tuple[int, int]] = None, lane: int = 0,
+                     terms: int = N_TERMS):
     """One tile's LR top-k (vals, flat in-tile idx) on one lane, the scan
-    body of `_build_bucket_sweep` (fast_sweep.py:432-464).  `cols` are the
-    code columns of the two blocks in a slab pool (by default their
-    own)."""
+    body of `_build_bucket_sweep` (fast_sweep.py:432-464), over the first
+    `terms` weight terms.  `cols` are the code columns of the two blocks
+    in a slab pool (by default their own)."""
     dev, marg = state.lanes[lane].dev, state.lanes[lane].marg
+    parts = dev.wparts[:terms]
     B, g = state.block, int(state.g)
     Rf, Rt, pure = key
     fs, ts = bi * B, bj * B
@@ -400,13 +444,13 @@ def _tile_candidates(state: FastSweepState, bi: int, bj: int,
     val_f, val_t = dev.valid[fs : fs + B], dev.valid[ts : ts + B]
     if uses_fused_tile(key, B):
         c_vals, c_cols = fused_tile_stage1(
-            dev.codes, cf, ct, B, B, dev.wparts, marg[bi, :2],
+            dev.codes, cf, ct, B, B, parts, marg[bi, :2],
             marg[bj, :2], pos_f, pos_t, val_f, val_t, dev.neff,
             bi == bj, g=g, sr_dist=sr_dist,
         )
         return chunk_topk(c_vals, c_cols, B, topk)
     mi = rank_mi_tile(
-        dev.codes, cf, ct, B, B, dev.wparts, marg[bi, :Rf],
+        dev.codes, cf, ct, B, B, parts, marg[bi, :Rf],
         marg[bj, :Rt], dev.r[fs : fs + B], dev.r[ts : ts + B], dev.neff,
         Rf, Rt, pure,
     )
@@ -426,13 +470,16 @@ def fast_lr_topk(
     sr_dist: int = 20000,
     topk: int = 4096,
     n_devices: Optional[int] = None,
+    precision_terms: int = 3,
     state: Optional[FastSweepState] = None,
     hbm_budget_bytes: Optional[int] = None,
     device="cuda",
 ):
     """Full LR-only sweep -> global long-range top-k (pos1, pos2, MI),
-    MI descending.  The JAX signature's `precision_terms` is left out:
-    the port's kernels always sum the three bf16 weight terms.  Pass
+    MI descending.  The kernels count over the first `precision_terms`
+    bf16 terms of the weights (1: the bf16-only sweep, a third of the
+    contraction; 3, the default, holds the f32 weights; the state keeps
+    three, whose first t are the t-term split).  Pass
     `state` from prepare_fast_sweep to skip the one-time host prep and
     transfer (e.g. when sweeping repeatedly or timing the sweep).
 
@@ -452,6 +499,10 @@ def fast_lr_topk(
     from ldweaver_tpu_torch.parallel import multihost
     from ldweaver_tpu_torch.parallel.slabs import panel_pair_order
 
+    terms = precision_terms
+    if not 1 <= terms <= N_TERMS:  # raises below one; past three: three
+        terms = len(split_terms(hdw if state is None else state.dev.w32.cpu(),
+                                terms))
     if state is None:
         state = prepare_fast_sweep(
             snp_data, hdw, block, n_devices, hbm_budget_bytes, device
@@ -506,7 +557,7 @@ def fast_lr_topk(
             key = (int(ranked.block_rmax[bi]), int(ranked.block_rmax[bj]),
                    bool(ranked.block_pure[bi]) and bool(ranked.block_pure[bj]))
             vals, idx = _tile_candidates(state, bi, bj, key, sr_dist, k_each,
-                                         cols, lane=l)
+                                         cols, lane=l, terms=terms)
             tie = (torch.arange(vals.numel(), device=vals.device)
                    + ordinal[bi, bj] * k_each)
             pend[l].append([vals, tie, idx.to(torch.int32)])

@@ -145,13 +145,14 @@ def test_rank_tile_matches_pallas_interpret(R):
     np.testing.assert_allclose(got, pal, rtol=0, atol=ATOL)
 
 
-def test_wparts_bit_equal():
+@pytest.mark.parametrize("terms", [1, 2, 3, 4, 5])
+def test_wparts_bit_equal(terms):
     rng = np.random.default_rng(1)
     w = np.concatenate([rng.uniform(0.0, 1.0, 997), [0.5, 1.0 / 3.0, 1e-8]])
-    w32_j, parts_j = jfs._wparts(w)
-    w32_t, parts_t = tfs.wparts(w)
+    w32_j, parts_j = jfs._wparts(w, terms)
+    w32_t, parts_t = tfs.wparts(w, terms)
     assert np.array_equal(w32_t.numpy().view(np.uint32), w32_j.view(np.uint32))
-    assert parts_t.dtype == torch.bfloat16 and tuple(parts_t.shape) == (3, w.size)
+    assert parts_t.dtype == torch.bfloat16 and tuple(parts_t.shape) == (terms, w.size)
     assert np.array_equal(
         parts_t.view(torch.int16).numpy().view(np.uint16),
         np.asarray(parts_j).view(np.uint16),
