@@ -76,7 +76,10 @@ Phases (any failure exits nonzero before the final line):
   6. lr      - the LR-only sweep `fast_lr_topk`: card against CPU at 64
                genomes x 16,384 SNPs, then the bench.py sweep leg (the
                `synth` recipe at 1024 genomes x 131,072 SNPs, block 4096,
-               top-k 1024): one warm call, 5 timed calls; then the same
+               top-k 1024): one warm call, 5 timed calls, one profiled
+               call split by the card's own events (busy: the union of
+               their intervals, at most the call's wall; summed; shares of
+               K1, K2, torch's kernels and copies); then the same
                input streamed through a 64 MiB budget
                (hbm_budget_bytes=67_108_864), whose top-1024 must equal
                the resident call's (pairs and values);
@@ -92,9 +95,17 @@ Phases (any failure exits nonzero before the final line):
                512 MiB): the bytes a pair and the range factor measured
                with the card's memory statistics must stay within
                sr_reduce's PART_* constants, the model "auto" selects by;
+     flat footprint - the single-device SR reduction's passes (flatten,
+               group stats, candidates) on 32 M synthetic kept pairs over
+               8 clusters and on 8 M over 8 and 2: the bytes a pair,
+               counted with the kept pairs, must stay within
+               sr_reduce.FLAT_PASS_BYTES, the flat model "auto" selects by;
+               the headline phase also holds BLK5's peak within its peak
+               after the tiles plus that model;
   8. multi   - two ranks on cuda:0, joined by torch.distributed on gloo
                (this script started as `--multi-worker job rank port`,
-               LDW_SR_BUDGET 1 GiB and device_budget_bytes 8 GiB a rank):
+               LDW_SR_BUDGET 1 GiB, multi auto's its own, and
+               device_budget_bytes 8 GiB a rank):
                multi small - the small input with backend="spmd" and
                sr_reduce auto, part and host, and backend="fast"; multi
                cli - `python -m ldweaver_tpu_torch.cli run --num-processes
@@ -109,6 +120,10 @@ Phases (any failure exits nonzero before the final line):
                two ranks (top-1024 equal to the lr phase's resident call,
                K1 and K2 launches summing to 150 and 378); the sharded
                sweep over the two ranks (equal to the one-process result).
+               multi auto - the headline input with sr_reduce="auto" and an
+               LDW_SR_BUDGET a rank between the part model and the flat
+               model of its SR table: both ranks take "part", each within
+               the part model, TSVs byte-identical to the headline phase's.
   9. terms   - the weight-term count t = 1 and 2 (`precision_terms` of the
                sweeps, `n_terms` of the kernels; every other phase runs the
                default three): K1 at the LR sweep's buckets ((2,2) pure,
@@ -1001,6 +1016,7 @@ def headline_phase(sr_reduce="auto"):
 
     import ldweaver_tpu_torch
     from ldweaver_tpu_torch.ops import rank_mi
+    from ldweaver_tpu_torch.parallel.sr_reduce import flat_peak_bytes
 
     d = os.path.join(WORK, "headline")
     os.makedirs(d)
@@ -1043,9 +1059,12 @@ def headline_phase(sr_reduce="auto"):
         f" order {spmd.get('bg_order_s')} s; background"
         f" {timings['blk5_phases'].get('background_s')} s), BLK5 peak device"
         f" memory {spmd['peak_bytes']} bytes ({spmd['peak_tiles_bytes']} after"
-        f" the tiles; pool {spmd['pool_bytes']} bytes)")
+        f" the tiles; pool {spmd['pool_bytes']} bytes); flat model"
+        f" {flat_peak_bytes(spmd['sr_pairs'])} bytes for {spmd['sr_pairs']} pairs")
     if spmd["sr_reduce"] != ("host" if sr_reduce == "host" else "device"):
         raise RuntimeError(f"headline: the SR table reduced on the {spmd['sr_reduce']}")
+    if spmd["peak_bytes"] > spmd["peak_tiles_bytes"] + flat_peak_bytes(spmd["sr_pairs"]):
+        raise RuntimeError("headline: BLK5 peak over the tiles' peak plus the flat model")
     if spmd["tiles"] != 528 or launches < 528:
         raise RuntimeError(f"headline: K1 launched {launches} times for"
                            f" {spmd['tiles']} tiles (528 expected)")
@@ -1055,7 +1074,7 @@ def headline_phase(sr_reduce="auto"):
     inputs = dict(fa=fa, pos=pos, gbk=gbk, dset=dset)
     with open(os.path.join(d, "inputs.json"), "wt") as fh:  # for the two ranks
         json.dump(dict(inputs, pos=os.path.join(d, "pos.npy")), fh)
-    return by_bucket, inputs
+    return by_bucket, inputs, spmd["sr_pairs"]
 
 
 HEADLINE_FAST_BUDGET = 50_331_648  # 48 MiB: 11 slabs of 616 x 4096, panels of 9
@@ -1135,7 +1154,7 @@ def depth_ab(depths=(4, 1, 1, 4)):
         shutil.rmtree(WORK)
     os.makedirs(WORK)
     build()
-    _, inputs = timed("headline", headline_phase)
+    _, inputs, _ = timed("headline", headline_phase)
     for depth in depths:
         shutil.rmtree(os.path.join(WORK, "headline", f"ldw_fast_depth{depth}"),
                       ignore_errors=True)
@@ -1172,12 +1191,42 @@ def cli_phase():
             raise RuntimeError(f"the CLI run ({backend}) failed")
 
 
+PORT_KERNEL = re.compile(r"\b(rank_mi|fused_tile|compat_mi)_kernel\b")
+
+
+def kernel_split(events):
+    """Device time of `events`, (name, start_us, end_us) of the card's
+    own activities (kernels, copies, fills): busy, the union of their
+    intervals (what an idle share needs; it cannot exceed the wall), and
+    summed, the sum of their times (above busy only where streams
+    overlap), in seconds; and by group, (ms, count) of the port's kernels
+    (every template instance of one kernel together), of the copies and
+    fills, and of the other kernels (torch's ops)."""
+    busy = summed = 0.0
+    end = float("-inf")
+    groups = {}
+    for name, t0, t1 in sorted(events, key=lambda e: e[1]):
+        summed += t1 - t0
+        busy += max(0.0, t1 - max(t0, end))
+        end = max(end, t1)
+        kern = PORT_KERNEL.search(name)
+        group = (kern.group(1) if kern else "copies"
+                 if re.match(r"Mem(cpy|set)", name) else "torch ops")
+        ms, n = groups.get(group, (0.0, 0))
+        groups[group] = (ms + (t1 - t0) / 1e3, n + 1)
+    return busy / 1e6, summed / 1e6, groups
+
+
 def device_time_split(fn, top=6):
-    """Run fn once under torch.profiler: summed device time of its kernels
-    and the kernels that took the most device time.  The profiler slows
-    the host side several-fold, so compare the device time with an
-    unprofiled wall time, not with this call's."""
+    """Run fn once under torch.profiler and split the card's time by its
+    own events (device_type CUDA in `prof.events()`; the CPU ops' entries
+    only attribute those events again): busy and summed device time
+    (`kernel_split`), each group's share of the summed time and the
+    kernels that took the most.  Fails when busy exceeds the profiled
+    wall.  The profiler slows the host side several-fold, so compare the
+    device time with an unprofiled wall time, not with this call's."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     t0 = time.time()
@@ -1185,27 +1234,27 @@ def device_time_split(fn, top=6):
         fn()
         torch.cuda.synchronize()
     wall = time.time() - t0
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(
-            e, "self_cuda_time_total", 0)
-
-    events = [e for e in prof.key_averages() if dev_us(e) > 0]
-    total = sum(dev_us(e) for e in events) / 1e6
-    events.sort(key=dev_us, reverse=True)
-    split = [(e.key[:60], round(dev_us(e) / 1e3, 2), e.count) for e in events[:top]]
-    # the port's own kernels, all template instances of one kernel together
-    ours = {}
-    for e in events:
-        kern = re.search(r"\b(rank_mi|fused_tile|compat_mi)_kernel\b", e.key)
-        if kern:
-            ms, n = ours.get(kern.group(1), (0.0, 0))
-            ours[kern.group(1)] = (round(ms + dev_us(e) / 1e3, 2), n + e.count)
-    shares = {k: round(ms / (1e3 * total), 4) for k, (ms, _) in ours.items()}
-    log(f"profiled call: wall {wall:.3f} s, device time {total:.3f} s;"
-        f" top kernels (name, ms, count): {split}; the port's kernels"
-        f" (ms, count): {ours}, share of the device time: {shares}")
-    return dict(profiled_wall_s=wall, device_busy_s=total, device_share=shares)
+    events = [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+              if e.device_type == DeviceType.CUDA]
+    if not events:
+        raise RuntimeError("profiled call: no device events")
+    busy, summed, groups = kernel_split(events)
+    by_name = {}
+    for name, a, b in events:
+        ms, n = by_name.get(name[:60], (0.0, 0))
+        by_name[name[:60]] = (ms + (b - a) / 1e3, n + 1)
+    split = sorted(((k, round(ms, 2), n) for k, (ms, n) in by_name.items()),
+                   key=lambda r: -r[1])[:top]
+    shares = {k: round(ms / (1e3 * summed), 4) for k, (ms, _) in groups.items()}
+    log(f"profiled call: wall {wall:.3f} s, device busy {busy:.3f} s, summed"
+        f" {summed:.3f} s over {len(events)} device events; top (name, ms, count):"
+        f" {split}; by group (ms, count):"
+        f" { {k: (round(ms, 2), n) for k, (ms, n) in groups.items()} },"
+        f" share of the summed time: {shares}")
+    if busy > wall:
+        raise RuntimeError(f"profiled call: device busy {busy:.3f} s over the wall {wall:.3f} s")
+    return dict(profiled_wall_s=wall, device_busy_s=busy, device_summed_s=summed,
+                device_share=shares)
 
 
 # --------------------------------------------------------------------------
@@ -1278,10 +1327,10 @@ def lr_phase():
     log(f"LR sweep (131,072 SNPs x 1024 genomes, block 4096, top-k 1024):"
         f" warm {warm_s:.2f} s, timed {[round(x, 3) for x in walls]} s, median"
         f" {median:.3f} s = {pairs / median:.4g} pairs/s; per call K2 {k2}"
-        f" launches, K1 {k1} {k1_by_bucket}; device time"
+        f" launches, K1 {k1} {k1_by_bucket}; device busy"
         f" {busy['device_busy_s']:.3f} s = {100 * busy['device_busy_s'] / median:.0f}%"
-        f" of the median wall, K2"
-        f" {100 * busy['device_share'].get('fused_tile', 0.0):.1f}% of it")
+        f" of the median wall (summed {busy['device_summed_s']:.3f} s), share of"
+        f" the summed time {busy['device_share']}")
     del state
     torch.cuda.empty_cache()
 
@@ -1373,15 +1422,16 @@ def free_port():
         return sock.getsockname()[1]
 
 
-def launch_ranks(job, argvs=None, timeout=900):
+def launch_ranks(job, argvs=None, timeout=900, sr_budget=MULTI_SR_BUDGET):
     """Start two processes (this script's `--multi-worker job rank port`
     by default, else `argvs[rank]` with the port filled in), both on
-    cuda:0, joined over gloo; wait for both and fail unless both exit 0.
-    Each rank's output goes to WORK/multi/<job>_r<rank>.log."""
+    cuda:0, joined over gloo, each with LDW_SR_BUDGET `sr_budget`; wait
+    for both and fail unless both exit 0.  Each rank's output goes to
+    WORK/multi/<job>_r<rank>.log."""
     d = os.path.join(WORK, "multi")
     os.makedirs(d, exist_ok=True)
     port = str(free_port())
-    env = dict(os.environ, LDW_SR_BUDGET=str(MULTI_SR_BUDGET))
+    env = dict(os.environ, LDW_SR_BUDGET=str(sr_budget))
     procs, logs = [], []
     for rank in range(2):
         argv = ([sys.executable, os.path.abspath(__file__), "--multi-worker", job,
@@ -1438,15 +1488,18 @@ def multi_worker(job, rank, port):
             )
             out[tag] = dict(k1=rank_mi.K1.launches, blk5=json.load(open(
                 os.path.join(dset, "timings.json")))["blk5_phases"][backend])
-    elif job == "big":
+    elif job in ("big", "auto"):
+        # the headline input, sr_reduce="part" ("big") or "auto"
         inputs = json.load(open(os.path.join(WORK, "headline", "inputs.json")))
-        dset = os.path.join(WORK, "multi", "headline", f"r{rank}")
+        dset = os.path.join(WORK, "multi", "headline" if job == "big" else "auto",
+                            f"r{rank}")
         rank_mi.K1.reset()
         t0 = time.time()
         ldweaver_tpu_torch.ldweaver(
             dset=dset, aln_path=inputs["fa"], aln_has_all_bases=False,
             pos=np.load(inputs["pos"]), gbk_path=inputs["gbk"], backend="spmd",
-            max_blk_sz=4096, SnpEff_Annotate=False, sr_reduce="part",
+            max_blk_sz=4096, SnpEff_Annotate=False,
+            sr_reduce="part" if job == "big" else "auto",
             device_budget_bytes=MULTI_DEVICE_BUDGET, device="cuda:0",
         )
         torch.cuda.synchronize()
@@ -1455,6 +1508,7 @@ def multi_worker(job, rank, port):
             k1_by_bucket={str(k): v for k, v in rank_mi.K1.by_bucket.items()},
             timings=json.load(open(os.path.join(dset, "timings.json"))))
         torch.cuda.empty_cache()
+    if job == "big":
         # the LR-only sweep of the lr phase, the tiles shared by the ranks
         sd, w = bench_snp_data(131072, 1024, seed=0)
         state = prepare_fast_sweep(sd, w, block=4096,
@@ -1633,6 +1687,56 @@ def multi_big_phase(inputs):
             {eval(k): v for k, v in lr_by_bucket.items()}, k2_lr, k3)
 
 
+def multi_auto_phase(inputs, sr_pairs):
+    """Two ranks on cuda:0: the headline (BLK1-BLK7) under
+    sr_reduce="auto", with an LDW_SR_BUDGET a rank between what the
+    partitioned pass needs and what the single-device reduction needs of
+    the `sr_pairs` kept pairs: `sr_reduce.part_peak_bytes` of a shard
+    holding all of them at the largest range budget bounds the first,
+    `sr_reduce.flat_peak_bytes` of the whole table is the second.  Both
+    ranks must take "part", each rank's peak stay within the part model,
+    and its TSVs be byte-identical to the headline phase's."""
+    import torch
+
+    from ldweaver_tpu_torch.parallel import sr_reduce as sr
+
+    part = sr.part_peak_bytes(sr_pairs, sr.PART_RANGE_MAX)
+    flat = sr.flat_peak_bytes(sr_pairs)
+    budget = (part + flat) // 2
+    log(f"multi auto: LDW_SR_BUDGET {budget} bytes a rank, between the part"
+        f" model's {part} and the flat model's {flat} for {sr_pairs} pairs")
+    if not part < budget < flat:
+        raise RuntimeError("multi auto: no budget between the part and flat models")
+    torch.cuda.empty_cache()
+    wall = launch_ranks("auto", sr_budget=budget)
+    res = {"wall_s": wall, "sr_budget": budget}
+    for rank in range(2):
+        h = read_rank("auto", rank)["headline"]
+        spmd = h["timings"]["blk5_phases"]["spmd"]
+        dset = os.path.join(WORK, "multi", "auto", f"r{rank}")
+        same = {n: tsv_bytes(dset, n) == tsv_bytes(inputs["dset"], n)
+                for n in ("sr_links.tsv", "lr_links.tsv")}
+        model = sr.part_peak_bytes(spmd["sr_pairs"], spmd.get("range_budget", 0))
+        res[f"r{rank}"] = dict(
+            wall_s=h["wall_s"], blk5_s=h["timings"]["blk5_mi_computation"],
+            sr_reduce=spmd["sr_reduce"], sr_partitions=spmd.get("sr_partitions"),
+            range_budget=spmd.get("range_budget"), sr_pairs_on_rank=spmd["sr_pairs"],
+            model_bytes=model, peak_bytes=spmd["peak_bytes"],
+            peak_tiles_bytes=spmd["peak_tiles_bytes"], bg_stats_s=spmd.get("bg_stats_s"),
+            gather_s=spmd["gather_s"], k1=h["k1"], tsv_byte_identical=same)
+        log(f"multi auto rank {rank}: {json.dumps(res[f'r{rank}'])}")
+        if spmd["sr_reduce"] != "device-part" or spmd["shards"] != 2:
+            raise RuntimeError(f"multi auto rank {rank}: the SR table reduced on the"
+                               f" {spmd['sr_reduce']} over {spmd['shards']} shards")
+        if model > budget or spmd["peak_bytes"] > spmd["peak_tiles_bytes"] + model:
+            raise RuntimeError(f"multi auto rank {rank}: over the part model: {res}")
+        if not all(same.values()):
+            raise RuntimeError(f"multi auto rank {rank}: TSVs differ from the headline's")
+        if spmd["tiles"] != 264 or h["k1"] < 264:
+            raise RuntimeError(f"multi auto rank {rank}: {spmd['tiles']} tiles, K1 {h['k1']}")
+    return res
+
+
 def sharded_phase():
     """`parallel/sweep.sharded_lr_topk` (K3 on every 512 x 512 tile) in
     one process on the card at 616 genomes x 8,192 SNPs (136 tiles), saved
@@ -1675,29 +1779,36 @@ def sharded_phase():
     return launches
 
 
-PART_PAIRS = 32 << 20  # the footprint phase's shard: a 512 MiB range buffer
+PART_PAIRS = 32 << 20  # the footprint phases' shard: a 512 MiB range buffer
 
 
-def part_footprint(n, device, nclust=8, seed=11):
-    """Device bytes of the partitioned SR reduction's passes on one shard
-    of n kept pairs, nearly every pair live (16,384 distinct positions
-    within SR_DIST of each other): the flattening, one k2 range holding every
-    record (the shard's records and the copy that one process gathers)
-    and the candidates.  Returns the bytes a pair of the passes over the
-    shard and of the flat arrays, the range buffer's bytes and its pass's
-    bytes over the flat arrays (memory statistics only on a card)."""
+def device_mem(device, peak=False):
+    """Bytes allocated on `device` now (or at their peak since the last
+    reset); 0 off a card."""
     import torch
 
-    from ldweaver_tpu_torch.parallel import sr_reduce as sr
+    if torch.device(device).type != "cuda":
+        return 0
+    torch.cuda.synchronize(device)
+    return (torch.cuda.max_memory_allocated(device) if peak
+            else torch.cuda.memory_allocated(device))
 
-    cuda = torch.device(device).type == "cuda"
 
-    def mem(peak=False):
-        if not cuda:
-            return 0
-        torch.cuda.synchronize(device)
-        return (torch.cuda.max_memory_allocated(device) if peak
-                else torch.cuda.memory_allocated(device))
+def reset_peak(device):
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+def footprint_shard(n, device, nclust, seed):
+    """The footprint phases' synthetic shard: 16,384 distinct positions
+    within SR_DIST of each other over 4 blocks of B, painted into `nclust`
+    clusters, and the kept SR outputs (bi, bj, i32 index, f32 MI) of
+    n // 2^19 tiles of 2^19 pairs, nearly every pair live.  Returns pos,
+    paint, the segments, their pair count and the bytes allocated before
+    the segments were made."""
+    import torch
 
     gen = torch.Generator(device=device).manual_seed(seed)
     nb = 4
@@ -1706,33 +1817,43 @@ def part_footprint(n, device, nclust=8, seed=11):
                           dtype=torch.int32)
     tiles = [(i, j) for i in range(nb) for j in range(i, nb)]
     per = 1 << 19
-    base = mem()
+    base = device_mem(device)
     segs = []
     for k in range(n // per):
         idx = torch.randint(0, B * B, (per,), generator=gen, device=device,
                             dtype=torch.int32)
         vals = torch.rand(per, generator=gen, device=device) * 0.99 + 0.01
         segs.append((*tiles[k % len(tiles)], idx, vals))
-    n = per * (n // per)
-    if cuda:
-        torch.cuda.reset_peak_memory_stats(device)
+    return pos, paint, segs, per * (n // per), base
+
+
+def part_footprint(n, device, nclust=8, seed=11):
+    """Device bytes of the partitioned SR reduction's passes on one shard
+    of n kept pairs (`footprint_shard`): the flattening, one k2 range
+    holding every record (the shard's records and the copy that one
+    process gathers) and the candidates.  Returns the bytes a pair of the
+    passes over the shard and of the flat arrays, the range buffer's bytes
+    and its pass's bytes over the flat arrays (memory statistics only on a
+    card)."""
+    from ldweaver_tpu_torch.parallel import sr_reduce as sr
+
+    pos, paint, segs, n, base = footprint_shard(n, device, nclust, seed)
+    reset_peak(device)
     flat = sr.flat_segments(segs, pos, paint, B, G, SR_DIST)
     segs.clear()
-    flatten = mem(True) - base
-    resident = mem() - base
+    flatten = device_mem(device, True) - base
+    resident = device_mem(device) - base
     count = int(flat.live.sum())  # all but a site's pair with itself
-    if cuda:
-        torch.cuda.reset_peak_memory_stats(device)
-    before = mem()
+    reset_peak(device)
+    before = device_mem(device)
     ns, xlo, xhi, range_bytes = sr.part_group_stats(
         [flat], np.array([1, 2 * SR_DIST]), np.array([[count]]), 0, SR_DIST, nclust)
-    range_pass = mem(True) - before
+    range_pass = device_mem(device, True) - before
     T = sr.threshold_tables(sr.fits_from_group_stats(ns, xlo, xhi, SR_DIST),
                             nclust, SR_DIST)
-    if cuda:
-        torch.cuda.reset_peak_memory_stats(device)
+    reset_peak(device)
     gi, _, _ = sr.candidates(flat, T, SR_DIST, nclust)
-    cand = mem(True) - base
+    cand = device_mem(device, True) - base
     return dict(pairs=n, candidates=int(gi.size), pass_bytes_a_pair=max(flatten, cand) / n,
                 flatten_bytes_a_pair=flatten / n, candidates_bytes_a_pair=cand / n,
                 flat_bytes_a_pair=resident / n, range_bytes=range_bytes,
@@ -1762,6 +1883,64 @@ def part_footprint_phase():
                 if got[k] > lim]
         if over:
             raise RuntimeError(f"part footprint over the model's constants: {over}")
+    return out
+
+
+def flat_footprint(n, device, nclust=8, seed=11):
+    """Device bytes of the single-device SR reduction on n kept pairs
+    (`footprint_shard`), the passes run as `run_device_reduction` runs
+    them: the flattening, pass 1 (`group_stats`: the i64 keys and one sort
+    a cluster), the host fits and pass 2 (`candidates`).  Each pass's peak
+    counts from before the segments were made, so the kept pairs, which
+    stay on the card through the reduction, are in it.  Returns the bytes
+    a pair of each pass and of the whole (memory statistics only on a
+    card)."""
+    from ldweaver_tpu_torch.parallel import sr_reduce as sr
+
+    pos, paint, segs, n, base = footprint_shard(n, device, nclust, seed)
+    reset_peak(device)
+    flat = sr.flat_segments(segs, pos, paint, B, G, SR_DIST)
+    flatten = device_mem(device, True) - base
+    reset_peak(device)
+    ns, xlo, xhi = sr.group_stats(flat, SR_DIST, nclust)
+    stats = device_mem(device, True) - base
+    T = sr.threshold_tables(sr.fits_from_group_stats(ns, xlo, xhi, SR_DIST),
+                            nclust, SR_DIST)
+    reset_peak(device)
+    gi, _, _ = sr.candidates(flat, T, SR_DIST, nclust)
+    cand = device_mem(device, True) - base
+    return dict(pairs=n, clusters=nclust, candidates=int(gi.size),
+                pass_bytes_a_pair=max(flatten, stats, cand) / n,
+                flatten_bytes_a_pair=flatten / n, stats_bytes_a_pair=stats / n,
+                candidates_bytes_a_pair=cand / n)
+
+
+FLAT_SHAPES = ((PART_PAIRS, 8), (PART_PAIRS // 4, 8), (PART_PAIRS // 4, 2))
+
+
+def flat_footprint_phase():
+    """`sr_reduce.flat_peak_bytes` against the card: the single-device
+    reduction's footprint at PART_PAIRS kept pairs and at a quarter of
+    them (the sort's scratch space grows with n) over 8 clusters, and at
+    the quarter over 2 (the per-cluster loop must not grow the peak).
+    Fails when a measurement exceeds sr_reduce.FLAT_PASS_BYTES."""
+    import torch
+
+    from ldweaver_tpu_torch.parallel import sr_reduce as sr
+
+    out = []
+    for n, nclust in FLAT_SHAPES:
+        torch.cuda.empty_cache()
+        got = flat_footprint(n, "cuda", nclust)
+        log(f"flat footprint ({n} pairs, {nclust} clusters): {json.dumps(got)}")
+        out.append(got)
+    log(f"flat footprint at {PART_PAIRS // 4} pairs, 8 clusters against 2:"
+        f" {out[1]['pass_bytes_a_pair'] - out[2]['pass_bytes_a_pair']:+.4f} bytes"
+        f" a pair; largest {max(g['pass_bytes_a_pair'] for g in out):.4f},"
+        f" FLAT_PASS_BYTES {sr.FLAT_PASS_BYTES}")
+    over = [g for g in out if g["pass_bytes_a_pair"] > sr.FLAT_PASS_BYTES]
+    if over:
+        raise RuntimeError(f"flat footprint over FLAT_PASS_BYTES: {over}")
     return out
 
 
@@ -1897,9 +2076,10 @@ def terms_phase():
         log(f"LR sweep t={t} (131,072 SNPs x 1024 genomes, block 4096, top-k 1024):"
             f" timed {[round(x, 3) for x in walls]} s, median {median:.3f} s ="
             f" {pairs / median:.4g} pairs/s; K2 {k2} launches, K1 {k1}"
-            f" {k1_by_bucket}; device time {busy['device_busy_s']:.3f} s, K2"
-            f" {100 * busy['device_share'].get('fused_tile', 0.0):.1f}%, K1"
-            f" {100 * busy['device_share'].get('rank_mi', 0.0):.1f}% of it")
+            f" {k1_by_bucket}; device busy {busy['device_busy_s']:.3f} s ="
+            f" {100 * busy['device_busy_s'] / median:.0f}% of the median wall"
+            f" (summed {busy['device_summed_s']:.3f} s), share of the summed"
+            f" time {busy['device_share']}")
     del state
     torch.cuda.empty_cache()
     log("terms sweep: " + json.dumps({
@@ -1980,17 +2160,20 @@ def main():
     timed("resume", resume_phase)
     launches, by_bucket = timed("slice", slice_phase)
     timed("cli", cli_phase)
-    headline_by_bucket, headline_inputs = timed("headline", headline_phase)
+    headline_by_bucket, headline_inputs, headline_sr_pairs = timed("headline",
+                                                                   headline_phase)
     fast_by_bucket = timed("headline fast", headline_fast_phase, headline_inputs)
     lr, lr_k1, lr_stream_k1 = timed("lr", lr_phase)
     k3_by_shape = timed("compat", compat_phase)
     k3_sharded = timed("sharded", sharded_phase)
     timed("one card", one_card_phase)
     timed("part footprint", part_footprint_phase)
+    timed("flat footprint", flat_footprint_phase)
     timed("multi small", multi_small_phase)
     timed("multi cli", multi_cli_phase)
     multi_by_bucket, multi_lr_by_bucket, multi_k2, multi_k3 = timed(
         "multi headline, lr, sharded", multi_big_phase, headline_inputs)
+    timed("multi auto", multi_auto_phase, headline_inputs, headline_sr_pairs)
     terms_rows, terms_sweep = timed("terms", terms_phase)
     kernels = []
     # K1 at the spmd slice's S = 616 and the LR sweep's S = 1024, each row

@@ -80,8 +80,11 @@ def build_parser():
     run.add_argument("--sr-reduce", default="auto",
                      choices=["auto", "device", "part", "host"],
                      help="where the spmd backend's SR background reduction"
-                          " runs: auto on the device when the SR table fits"
-                          " LDW_SR_BUDGET or 0.35 of the card's memory (a"
+                          " runs: auto on the device when the reduction's"
+                          " measured footprint (sr_reduce.FLAT_PASS_BYTES a"
+                          " kept pair) fits LDW_SR_BUDGET or 0.35 of the"
+                          " card's memory, over several shards the"
+                          " partitioned reduction when it fits there (a"
                           " loud WARNING and the host otherwise); device on"
                           " the device whatever its size; part the"
                           " grid-partitioned reduction over several shards"

@@ -81,8 +81,10 @@ class LDWeaverConfig:
     # emission (1 = synchronous)
     pipeline_depth: int = 4
     # where the SR background reduction runs for backend='spmd'
-    # (parallel/sr_reduce.py): 'auto' = on the device when the SR table
-    # fits the budget, else the host with a warning; 'device' = always on
+    # (parallel/sr_reduce.py): 'auto' = on the device when the reduction's
+    # measured footprint (sr_reduce.flat_peak_bytes) fits the budget, else
+    # over several shards 'part' when it fits, else the host with a
+    # warning; 'device' = always on
     # the device; 'part' = the grid-partitioned reduction over several
     # shards ('auto' on one); 'host' = copy the SR table to the host.
     # Outputs are byte-identical across modes.

@@ -290,7 +290,8 @@ class FastTileRunner:
     at least as many as tiles that succeeded) demotes the runner to full
     transfers.  Outputs do not depend on the transfer mode.
 
-    `devices` are the local devices (the JAX runner's `devices=`): each
+    `devices` are the local devices (the JAX runner's `devices=`; None,
+    as there, the first card): each
     is a lane with its own slab cache and device inputs; `dispatch` sends
     a tile to the lane it is given (lane 0 by default), and `finish` runs
     its retry or fallback on the same lane.  Results do not depend on the
@@ -314,7 +315,7 @@ class FastTileRunner:
         keep_sr: bool = False,
         topk_cap: int = 1 << 18,
         sr_counts: Optional[np.ndarray] = None,
-        devices: Sequence = ("cuda",),
+        devices: Optional[Sequence] = None,
     ):
         self.ranked = ranked
         self.paint_sorted = paint_sorted
@@ -331,7 +332,7 @@ class FastTileRunner:
             else max(0.0, 1.0 - lr_retain_links / lr_links_approx)
         )
         self.caches, self.devs = [], []
-        for d in devices:
+        for d in devices or [resolve_device("cuda")]:
             cache = SlabCache(ranked.rank_codes, ranked.block, max_slabs, d)
             self.caches.append(cache)
             self.devs.append(device_inputs(

@@ -614,8 +614,11 @@ def blk5_sweep(
     `merge_and_sort_sr_links_from_candidates` on the returned reduction
     (TSVs byte-identical to the host mode).  Each process selects the
     mode, and for "part" the range budget (`sr_reduce.part_range_budget`),
-    from its own SR budget; under several processes they compare their
-    choices before the loop and raise if they differ.
+    from its own SR budget, against which "device" counts
+    `sr_reduce.flat_peak_bytes` of the whole table and "part"
+    `sr_reduce.part_peak_bytes` of the largest shard (both measured on the
+    card); under several processes they compare their choices before the
+    loop and raise if they differ.
 
     `checkpoint_dir` resumes the sweep tile by tile (the JAX package's
     segment checkpoints, at tile granularity): each finished tile's LR

@@ -324,6 +324,28 @@ PART_RANGE_MIN = 64 << 20
 PART_RANGE_MAX = 512 << 20
 
 
+# Device bytes a kept SR pair of the single-device reduction ("device"):
+#     FLAT_PASS_BYTES * n
+# counted from before the sweep's kept (i32 index, f32 MI) pairs, which
+# stay on the card through both passes: the flat arrays (k2, MI, c1, c2,
+# gi, gj i32 and the live flag), pass 1's i64 key and mono MI, each
+# cluster's i64 sort key with the sort's values, its unread i64 indices
+# and its scratch space, and pass 2's candidates.  Measured on an H100
+# 80GB HBM3 (700 W) by chip_smoke.flat_footprint at 32 M and 8 M pairs
+# over 8 clusters and at 8 M over 2: 98.46-99.09 bytes a pair (pass 1;
+# flattening 33.0, candidates 45.0-45.2).  Each cluster's group stats
+# (16 bytes a distance key) add 0.46 bytes a pair from 2 clusters to 8 at
+# 8 M pairs, a size that does not grow with the pairs.  The constant is
+# the largest measurement rounded up; chip_smoke.flat_footprint_phase
+# fails when a measurement exceeds it.
+FLAT_PASS_BYTES = 100
+
+
+def flat_peak_bytes(n: int) -> int:
+    """The single-device reduction's device bytes for n kept pairs."""
+    return FLAT_PASS_BYTES * int(n)
+
+
 def part_range_budget(budget: int, n: int) -> int:
     """The range budget R of the partitioned pass under an SR budget of
     `budget` bytes, the largest shard holding n kept pairs."""
@@ -356,16 +378,20 @@ def select_mode(sr_reduce: str, total_sr: int, g: int, device,
     (the JAX package's rules, spmd_sweep.py:1106-1165).  `shard_sr` holds
     each shard's kept pairs (one shard by default).
 
-    The single-device reduction ("device") counts 8 bytes a kept pair (i32
-    index, f32 MI) against `sr_budget`; the partitioned one ("part", more
+    The JAX package counts 8 bytes a kept pair (the resident i32 index and
+    f32 MI, ldweaver_tpu/parallel/spmd_sweep.py:1107-1120) against the
+    budget.  The port's torch passes hold the flat per-link arrays, the
+    i64 sort keys and the sort's outputs beside those pairs, so the
+    single-device reduction ("device") counts `flat_peak_bytes`, measured
+    on the card, against `sr_budget`; the partitioned one ("part", more
     than one shard) counts `part_peak_bytes` of the largest shard at the
-    range budget `part_range_budget` gives.  g >= 2^30 would overflow the int32 distance key: always the
-    host.  "device" ignores the budget; "part" is the partitioned pass
-    whenever there is more than one shard, and on one shard "device" when
-    it fits, else the host; "auto" takes "device", else "part", else warns
-    and takes the host."""
+    range budget `part_range_budget` gives.  g >= 2^30 would overflow the
+    int32 distance key: always the host.  "device" ignores the budget;
+    "part" is the partitioned pass whenever there is more than one shard,
+    and on one shard "device" when it fits, else the host; "auto" takes
+    "device", else "part", else warns and takes the host."""
     budget = sr_budget(device)
-    sr_bytes = 8 * int(total_sr)
+    sr_bytes = flat_peak_bytes(total_sr)
     fits = sr_bytes <= budget
     nsh = len(shard_sr) if shard_sr is not None else 1
     if g >= 1 << 30:
@@ -388,11 +414,14 @@ def select_mode(sr_reduce: str, total_sr: int, g: int, device,
                 print(f"sr_reduce='part' on one device: using the"
                       f" {'device' if fits else 'HOST'} path instead"
                       " (partitioning cannot reduce per-device residency"
-                      " without more devices).", flush=True)
+                      f" without more devices; the device path needs"
+                      f" {sr_bytes / 1e9:.1f} GB against a {budget / 1e9:.1f} GB"
+                      " budget).", flush=True)
             return mode
     if mode == "host":
-        print(f"WARNING: SR outputs ({sr_bytes / 1e9:.1f} GB) exceed the"
-              f" device budget ({budget / 1e9:.1f} GB) over {nsh} shard(s):"
+        print(f"WARNING: the SR reduction on one device ({sr_bytes / 1e9:.1f} GB,"
+              f" {FLAT_PASS_BYTES} bytes a kept pair) exceeds the device"
+              f" budget ({budget / 1e9:.1f} GB) over {nsh} shard(s):"
               " falling back to the HOST SR reduction, which copies the full"
               " SR table to the host.  Add shards or raise LDW_SR_BUDGET to"
               " keep the reduction on the device.", flush=True)

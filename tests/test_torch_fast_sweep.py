@@ -145,6 +145,22 @@ def test_transfer_modes_agree(synth):
     assert {(int(a), int(b)) for t in sr_links[0] for a, b in zip(t.pos1, t.pos2)} == sr_f
 
 
+def test_runner_devices_default_to_the_first_card(synth, monkeypatch):
+    """FastTileRunner(devices=None) runs one lane on the first card, as the
+    JAX runner's default does (`jax.devices()[0]`); the card's resolution
+    is stubbed to the CPU here."""
+    sd, w = synth
+    asked = []
+    monkeypatch.setattr(tsweep, "resolve_device",
+                        lambda d: asked.append(d) or torch.device("cpu"))
+    ranked = tfs.stratify(sd.codes, sd.acgtn_table, sd.pos, sd.r, 512)
+    runner = tsweep.FastTileRunner(
+        ranked, np.ones(ranked.pos.size, np.int64),
+        np.arange(ranked.pos.size) < sd.nsnp, w, float(w.sum()), sd.g, SR_DIST,
+        2_000.0, 700_000.0, [[]])
+    assert asked == ["cuda"] and len(runner.devs) == len(runner.caches) == 1
+
+
 def test_full_transfer_matches_jax(synth):
     sd, w = synth
     approx, retain = 700_000.0, 2_000.0

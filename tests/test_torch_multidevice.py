@@ -354,9 +354,9 @@ def test_select_mode_part_model(monkeypatch):
     total = sum(shards)
     least = max(tsr.PART_PASS_BYTES * n,
                 tsr.PART_PAIR_BYTES * n + tsr.PART_RANGE_FACTOR * lo)
-    assert least < 8 * total
+    assert least < tsr.flat_peak_bytes(total)
     assert tsr.part_peak_bytes(n, tsr.part_range_budget(least, n)) <= least
-    for budget, want, one in ((8 * total, "device", "device"),
+    for budget, want, one in ((tsr.flat_peak_bytes(total), "device", "device"),
                               (least, "part", "host"),
                               (least - 1, "host", "host")):
         monkeypatch.setenv("LDW_SR_BUDGET", str(budget))
@@ -367,6 +367,23 @@ def test_select_mode_part_model(monkeypatch):
                                verbose=False) == one
         assert tsr.select_mode("part", total, 2_200_000, "cpu", verbose=False,
                                shard_sr=shards) == "part"
+
+
+def test_auto_takes_part_over_two_shards_where_the_jax_rule_took_device(monkeypatch):
+    """A table between the JAX package's 8 bytes a pair and the port's
+    flat model: "auto" sends it to the host on one shard and to "part" on
+    two, at a budget where `part_peak_bytes` of the larger shard fits."""
+    shards = [110_000_000, 90_000_000]
+    total = sum(shards)
+    budget = 8 << 30
+    assert 8 * total < budget < tsr.flat_peak_bytes(total)
+    n = max(shards)
+    assert tsr.part_peak_bytes(n, tsr.part_range_budget(budget, n)) <= budget
+    monkeypatch.setenv("LDW_SR_BUDGET", str(budget))
+    assert tsr.select_mode("auto", total, 2_200_000, "cpu", verbose=False) == "host"
+    assert tsr.select_mode("auto", total, 2_200_000, "cpu", verbose=False,
+                           shard_sr=shards) == "part"
+    assert tsr.select_mode("part", total, 2_200_000, "cpu", verbose=False) == "host"
 
 
 def test_two_cuda_devices_on_one_card_raise(monkeypatch):

@@ -28,7 +28,21 @@ EXTRA = [
     ("ldweaver_tpu.core.mi", "ldweaver_tpu_torch.core.mi", "mi_tile_jax"),
     ("ldweaver_tpu.parallel.sweep", "ldweaver_tpu_torch.parallel.sweep",
      "sharded_lr_topk"),
+    ("ldweaver_tpu.core.sweep", "ldweaver_tpu_torch.core.sweep",
+     "perform_mi_computation"),
+    ("ldweaver_tpu.core.sweep", "ldweaver_tpu_torch.core.sweep", "sweep_block_pair"),
+    ("ldweaver_tpu.core.sweep", "ldweaver_tpu_torch.core.sweep",
+     "sweep_block_pair_fast"),
+    ("ldweaver_tpu.core.sweep", "ldweaver_tpu_torch.core.sweep",
+     "FastTileRunner.__init__"),
+    ("ldweaver_tpu.core.hamming", "ldweaver_tpu_torch.core.hamming",
+     "estimate_hamming_distance_weights"),
+    ("ldweaver_tpu.parallel.fast_sweep", "ldweaver_tpu_torch.parallel.fast_sweep",
+     "prepare_fast_sweep"),
 ]
+# Left out: `ops/fused_tile.fused_tile_stage1` takes the LR sweep's launch
+# layout (codes, fs, ts, nf, nt) and reads the term count from `wparts`;
+# it is the sweep's internal launch of K2, not a host-facing entry point.
 
 # TPU tile shapes and Pallas's interpret switch: the port's kernels choose
 # their own launch shapes (ROADMAP.md: "Tile sizes and launch shapes are
@@ -42,6 +56,14 @@ PORT_ONLY = {
         # (parallel/sweep.py:167-176); the port's sweep takes them here
         "hist_bins": "the SR histogram's bins, build_sharded_sweep's default",
         "hist_max": "the SR histogram's range, build_sharded_sweep's default",
+    },
+    "FastTileRunner.__init__": {
+        # the JAX package's spmd_blk5_sweep does these jobs outside the
+        # runner (parallel/spmd_sweep.py:996-1042 there); the port's one
+        # tile loop for "spmd" and "fast" hands them to the runner
+        "keep_sr": "SR pairs kept on the device for the on-device reduction",
+        "topk_cap": "spmd_blk5_sweep's topk_cap, the extraction's LR top-K cap",
+        "sr_counts": "the host-known SR pair counts a tile, computed once",
     },
 }
 
@@ -58,11 +80,19 @@ def test_the_port_exports_the_same_names():
     assert len(ldweaver_tpu._API) == 27
 
 
+def resolve(module, attr):
+    """`module`'s attribute `attr`, which may be dotted (a method)."""
+    obj = importlib.import_module(module)
+    for name in attr.split("."):
+        obj = getattr(obj, name)
+    return obj
+
+
 @pytest.mark.parametrize("name,jmod,jattr,tmod,tattr", pairs(),
                          ids=[p[0] for p in pairs()])
 def test_parameters_and_defaults_match(name, jmod, jattr, tmod, tattr):
-    jax_fn = getattr(importlib.import_module(jmod), jattr)
-    port_fn = getattr(importlib.import_module(tmod), tattr)
+    jax_fn = resolve(jmod, jattr)
+    port_fn = resolve(tmod, tattr)
     jp = inspect.signature(jax_fn).parameters
     tp = inspect.signature(port_fn).parameters
     for p in jp.values():

@@ -270,8 +270,8 @@ def test_auto_over_budget_warns_and_takes_host(tmp_path, capsys, monkeypatch):
 
 @pytest.mark.parametrize("sr_reduce, total_sr, g, budget, want", [
     ("auto", 1000, 399_999, None, "device"),
-    ("auto", 1000, 399_999, "7999", "host"),
-    ("auto", 1000, 399_999, "8000", "device"),
+    ("auto", 1000, 399_999, str(tsr.flat_peak_bytes(1000) - 1), "host"),
+    ("auto", 1000, 399_999, str(tsr.flat_peak_bytes(1000)), "device"),
     ("device", 1000, 399_999, "1", "device"),
     ("part", 1000, 399_999, None, "device"),
     ("part", 1000, 399_999, "1", "host"),
@@ -281,11 +281,49 @@ def test_auto_over_budget_warns_and_takes_host(tmp_path, capsys, monkeypatch):
     ("auto", 1000, 1 << 30, None, "host"),
 ])
 def test_select_mode(monkeypatch, sr_reduce, total_sr, g, budget, want):
-    """The JAX package's selection on one device: 8 bytes a kept pair
-    against LDW_SR_BUDGET (else 4 GiB without a card), g >= 2^30 always
-    on the host."""
+    """The JAX package's selection on one device, with the port's
+    measured bytes a kept pair (`flat_peak_bytes`, not the JAX package's
+    8) against LDW_SR_BUDGET (else 4 GiB without a card), g >= 2^30
+    always on the host."""
     if budget is None:
         monkeypatch.delenv("LDW_SR_BUDGET", raising=False)
     else:
         monkeypatch.setenv("LDW_SR_BUDGET", budget)
     assert tsr.select_mode(sr_reduce, total_sr, g, "cpu", verbose=False) == want
+
+
+def test_flat_model_counts_at_least_the_jax_rule():
+    """`flat_peak_bytes` grows with the pairs and never counts fewer than
+    the JAX package's 8 bytes a pair, so "auto" never admits a table to
+    the card that the JAX rule would keep off it."""
+    ns = [0, 1, 1000, 1 << 20, 156_118_853, 1 << 32]
+    got = [tsr.flat_peak_bytes(n) for n in ns]
+    assert got == sorted(got) and got[0] == 0
+    assert all(b >= 8 * n for n, b in zip(ns, got))
+
+
+def test_auto_warning_counts_the_flat_model(monkeypatch, capsys):
+    """The host fallback's warning gives the bytes the flat model counts."""
+    n = 10_000_000
+    monkeypatch.setenv("LDW_SR_BUDGET", str(8 * n))
+    assert tsr.select_mode("auto", n, 2_200_000, "cpu", verbose=False) == "host"
+    out = capsys.readouterr().out
+    assert f"({tsr.flat_peak_bytes(n) / 1e9:.1f} GB," in out and "WARNING" in out
+
+
+def test_flat_and_part_footprints_run_on_the_cpu():
+    """chip_smoke's footprint helpers run their passes on the CPU at the
+    smallest shard (one segment of 2^19 pairs); memory statistics exist
+    only on a card, so every byte count is 0 here."""
+    import chip_smoke
+
+    flat = chip_smoke.flat_footprint(1 << 19, "cpu", nclust=2)
+    assert flat["pairs"] == 1 << 19 and flat["clusters"] == 2
+    assert 0 < flat["candidates"] < flat["pairs"]
+    assert {k: v for k, v in flat.items() if k.endswith("_a_pair")} == {
+        "pass_bytes_a_pair": 0, "flatten_bytes_a_pair": 0,
+        "stats_bytes_a_pair": 0, "candidates_bytes_a_pair": 0}
+    part = chip_smoke.part_footprint(1 << 19, "cpu", nclust=2)
+    assert part["pairs"] == 1 << 19 and part["candidates"] == flat["candidates"]
+    assert part["range_bytes"] > 0 and part["range_pass_bytes"] == 0
+    assert part["pass_bytes_a_pair"] == part["flat_bytes_a_pair"] == 0
