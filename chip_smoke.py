@@ -56,18 +56,24 @@ Phases (any failure exits nonzero before the final line):
      cli     - `python -m ldweaver_tpu_torch.cli run --device cuda` in a
                subprocess on the small input, with --backend spmd and
                with the default backend (fast): exit 0 and the SR tophits;
-     headline- the main path at the JAX package's headline size, 616
-               genomes x 2.2 Mb x 131,072 SNPs, max_blk_sz 4096 (32
-               blocks, 528 tiles), BLK1-BLK7 (SnpEff_Annotate=False):
-               the SR reduction on the card, K1 launched for every tile,
-               the SR pair count equal to an independent count from the
-               kept positions, the per-block times, the BLK5 split and
-               BLK5's own peak device memory;
-     headline fast - the same input through `ldweaver(..., backend="fast",
+     headline- examples/bench_e2e.py's run: the whole 616 genomes x 2.2
+               Mb alignment (131,072 planted SNPs, written with the SNP-only
+               alignment in one pass) through BLK1-BLK12 with its config
+               (aln_has_all_bases, SnpEff_Annotate, lr_retain_links
+               1,000,000, max_blk_sz 4096: 32 blocks, 528 tiles): every
+               block in timings.json, the SR reduction on the card, K1
+               launched for every tile with 0 fallbacks, the SR pair count
+               equal to an independent count from the kept positions and to
+               the JAX package's record (156,118,853), the SR rows within
+               the reference's fringe of its record (394,599 +- 814), every
+               data file of BLK8-BLK12 present and parsed, the per-block
+               times, the BLK5 split and BLK5's own peak device memory;
+     headline fast - the SNP-only input through `ldweaver(..., backend="fast",
                device_budget_bytes=50_331_648)` (48 MiB: the rank codes
                stream through an 11-slot slab pool in panels of 9),
                BLK1-BLK7: the SR table reduced on the card,
-               sr_links.tsv byte-identical to the headline spmd run's,
+               sr_links.tsv byte-identical to the headline e2e run's
+               in the srp order of a run without annotation,
                its lr_links.tsv lines equal as a set, the run streamed
                with a pool within 60% of the budget, K1 launched for
                every tile; blk5_phases "fast" (uploads, hits, dispatch /
@@ -83,6 +89,19 @@ Phases (any failure exits nonzero before the final line):
                input streamed through a 64 MiB budget
                (hbm_budget_bytes=67_108_864), whose top-1024 must equal
                the resident call's (pairs and values);
+     pipeline leg - bench.py's pipeline leg: `perform_mi_computation(
+               backend="spmd")` on its synth recipe at 616 genomes x 131,072
+               SNPs with a random 3-cluster paint, block 4096: SR links
+               and LR rows within the reference's fringe of the JAX
+               package's record (396,094 +- 817, 1,000,426 +- 98);
+     streaming leg - bench.py's streaming leg: `fast_lr_topk` (top-k 1024)
+               on its synth recipe at 16,384 genomes x 32,768 SNPs, block
+               4096, through 0.75 of its 8 slabs of 67.1 MB (4 slots,
+               panels of 2): the run streams, the counted call uploads the
+               JAX package's recorded 17 slabs, and its top-1024 equals a
+               resident run's (all 8 slabs on the card) apart from
+               near-ties; then K1 at the leg's buckets and K2 at S =
+               16,384, each against its plain version as in phase 3;
   7. compat  - the compat path, `ldweaver(..., backend="pallas")` through
                BLK1-BLK7 at 616 genomes x 2.2 Mb x 8,192 SNPs,
                max_blk_sz=4000 (3 blocks, 6 tiles);
@@ -113,7 +132,8 @@ Phases (any failure exits nonzero before the final line):
                byte-identical to the single-process card run's.  Then the
                headline input with sr_reduce="part" (more than 2 k2
                ranges at the range budget's floor), each rank's TSVs
-               byte-identical to the headline phase's and its peak within
+               byte-identical to the headline phase's tables (the SR
+               table in srp order) and its peak within
                the part model, with
                each rank's BLK5 split, gather seconds and bytes and peak
                device memory; the LR-only sweep at 1024 x 131,072 over the
@@ -123,7 +143,7 @@ Phases (any failure exits nonzero before the final line):
                multi auto - the headline input with sr_reduce="auto" and an
                LDW_SR_BUDGET a rank between the part model and the flat
                model of its SR table: both ranks take "part", each within
-               the part model, TSVs byte-identical to the headline phase's.
+               the part model, TSVs byte-identical to those tables.
   9. terms   - the weight-term count t = 1 and 2 (`precision_terms` of the
                sweeps, `n_terms` of the kernels; every other phase runs the
                default three): K1 at the LR sweep's buckets ((2,2) pure,
@@ -143,8 +163,10 @@ Each path runs with the launch counts of its kernels set to 0 just before
 and read just after (the cli phases' and the ranks' launches are their
 subprocesses' own).
 
-Prints one JSON line of per-kernel numbers, then the card's name and
-power limit as nvidia-smi gives them, then the ok line.  The input data
+Prints one JSON line of each recorded run's counts beside the JAX
+package's record (`recorded`, with the e2e run's per-block times), one
+JSON line of per-kernel numbers, then the card's name and power limit as
+nvidia-smi gives them, then the ok line.  The input data
 is generated from a seed into `_smoke_run/` (git-ignored) beside this
 file.  The port imports neither JAX nor the JAX package.
 """
@@ -295,29 +317,35 @@ def bound(nbytes, flops):
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def bench_synth(nsnp, nseq, seed=0):
+def bench_synth(nsnp, nseq, seed=0, chunk=2048):
     """bench.py's `synth` recipe: mostly biallelic sites (MAF 0.02-0.5),
     ~15% of sites carrying N calls at 3%, positions over a 2.2 Mb genome,
-    Hamming-like weights in [0.05, 0.5]."""
+    Hamming-like weights in [0.05, 0.5].  The [nseq, nsnp] uniform draws
+    are taken `chunk` genomes at a time (the same stream, so the same
+    values), and only the u8 codes are held whole."""
     rng = np.random.default_rng(seed)
     major = rng.integers(0, 4, size=nsnp)
     minor = (major + rng.integers(1, 4, size=nsnp)) % 4
     maf = rng.uniform(0.02, 0.5, size=nsnp)
-    u = rng.random((nseq, nsnp))
-    codes = np.where(u < maf[None, :], minor[None, :], major[None, :]).astype(
-        np.uint8
-    )
+    codes = np.empty((nseq, nsnp), np.uint8)
+    major8, minor8 = major.astype(np.uint8), minor.astype(np.uint8)
+    for s0 in range(0, nseq, chunk):
+        u = rng.random((min(chunk, nseq - s0), nsnp))
+        codes[s0 : s0 + len(u)] = np.where(u < maf[None, :], minor8[None, :],
+                                           major8[None, :])
     del u
     n_sites = rng.random(nsnp) < 0.15
-    ncells = (rng.random((nseq, nsnp)) < 0.03) & n_sites[None, :]
-    codes[ncells] = 4
+    for s0 in range(0, nseq, chunk):
+        ncells = (rng.random((min(chunk, nseq - s0), nsnp)) < 0.03) & n_sites[None, :]
+        codes[s0 : s0 + len(ncells)][ncells] = 4
     del ncells
     pos = np.sort(
         rng.choice(np.arange(1, G + 1), size=nsnp, replace=False)
     ).astype(np.int64)
     acgtn = np.zeros((5, nsnp), np.int64)
-    for k in range(5):
-        acgtn[k] = (codes == k).sum(axis=0)
+    for s0 in range(0, nseq, chunk):
+        for k in range(5):
+            acgtn[k] += (codes[s0 : s0 + chunk] == k).sum(axis=0)
     uqe = (acgtn > 0).astype(np.uint8).T
     r = uqe.sum(axis=1).astype(np.int32)
     w = rng.uniform(0.05, 0.5, size=nseq)
@@ -392,8 +420,12 @@ def kernel_phase(S, buckets, seed, terms=3):
         if not bool(torch.isfinite(got).all()):
             raise RuntimeError(f"{tag}: non-finite output")
         err = float((got.double() - exact).abs().max())
-        err32 = float((got - plain).abs().max())
-        err_plain = float((plain.double() - exact).abs().max())
+        # the f32 plain version is a yardstick, not a user path on the card:
+        # its non-finite outputs are counted and left out of its errors
+        fin32 = torch.isfinite(plain)
+        plain_nonfinite = int((~fin32).sum())
+        err32 = float((got - plain)[fin32].abs().max())
+        err_plain = float((plain.double() - exact)[fin32].abs().max())
         del exact
         # f64 oracle on a 256 x 256 sub-tile (host, reference statistic)
         n = 256
@@ -423,7 +455,8 @@ def kernel_phase(S, buckets, seed, terms=3):
         bound_ms, bound_by = bound(nbytes, 2.0 * B * B * terms * S * nc)
         row = dict(
             Rf=Rf, Rt=Rt, pure=pure, S=S, n_terms=terms, max_abs_err=err,
-            f32_plain_max_abs_err=err32, f64_max_abs_err=err64,
+            f32_plain_max_abs_err=err32, f32_plain_nonfinite=plain_nonfinite,
+            f64_max_abs_err=err64,
             ms=ms, plain_ms=plain_ms, library_ms=library_ms,
             bound_ms=bound_ms, bound_by=bound_by, bound_frac=bound_ms / ms,
         )
@@ -432,7 +465,8 @@ def kernel_phase(S, buckets, seed, terms=3):
             f" matmul {library_ms} ms, bound {bound_ms:.4f} ms ({bound_by}),"
             f" {bound_ms / ms:.3f} of the bound;"
             f" max|kernel-plain64| {err:.2e} (f32 plain: kernel {err32:.2e},"
-            f" plain {err_plain:.2e}), max|kernel-f64 oracle| {err64:.2e}")
+            f" plain {err_plain:.2e}, {plain_nonfinite} non-finite),"
+            f" max|kernel-f64 oracle| {err64:.2e}")
         if err > ATOL_PLAIN:
             raise RuntimeError(f"{tag}: kernel vs plain (f64) {err:.3e} > {ATOL_PLAIN}")
         if not ok64:
@@ -442,13 +476,13 @@ def kernel_phase(S, buckets, seed, terms=3):
     return rows
 
 
-def fused_inputs(rng, same):
-    """Biallelic rank codes [S, B] (same block) or [S, 2B] (rows' SNPs,
+def fused_inputs(rng, same, nseq=K2_S):
+    """Biallelic rank codes [nseq, B] (same block) or [nseq, 2B] (rows' SNPs,
     then the columns'), rank 0 the major allele, sorted positions per
     block over the genome, pad sites at the ends of the blocks."""
     n = B if same else 2 * B
     maf = rng.uniform(0.02, 0.5, n)
-    codes = (rng.random((K2_S, n)) < maf[None, :]).astype(np.uint8)
+    codes = (rng.random((nseq, n)) < maf[None, :]).astype(np.uint8)
     pos = np.concatenate([
         np.sort(rng.choice(np.arange(1, G + 1), B, replace=False))
         for _ in range(n // B)
@@ -456,15 +490,16 @@ def fused_inputs(rng, same):
     valid = np.ones(n, bool)
     valid[B - 5 : B] = False
     valid[n - 3 :] = False
-    w = 1.0 / rng.integers(1, 12, K2_S)
+    w = 1.0 / rng.integers(1, 12, nseq)
     return np.ascontiguousarray(codes), pos, valid, w
 
 
-def fused_phase(terms=3):
-    """K2 at the LR sweep's tile shape over the first `terms` weight terms,
-    cross- and same-block: against its plain version in float64 on the
-    card (the exact candidates of the kernel's own inputs) and, at three
-    terms, the host f64 oracle on the first 256 rows."""
+def fused_phase(terms=3, nseq=K2_S):
+    """K2 at the LR sweep's tile shape (B x B over `nseq` genomes) over the
+    first `terms` weight terms, cross- and same-block: against its plain
+    version in float64 on the card (the exact candidates of the kernel's
+    own inputs) and, at three terms, the host f64 oracle on the first 256
+    rows."""
     import torch
 
     from ldweaver_tpu_torch.core.mi import mi_tile_numpy
@@ -481,8 +516,8 @@ def fused_phase(terms=3):
     f64 = torch.float64
     row = None
     for same in (False, True):
-        tag = f"K2 {'same' if same else 'cross'}-block t={terms}"
-        codes_np, pos_np, valid_np, w = fused_inputs(rng, same)
+        tag = f"K2 {'same' if same else 'cross'}-block S={nseq} t={terms}"
+        codes_np, pos_np, valid_np, w = fused_inputs(rng, same, nseq)
         codes = torch.from_numpy(codes_np).to(dev)
         w32, parts = wparts(w)
         w32, parts = w32.to(dev), parts[:terms].to(dev).contiguous()
@@ -551,17 +586,17 @@ def fused_phase(terms=3):
             ms = cuda_time_ms(lambda: fused_tile.fused_tile_stage1(*args, **kw), reps=20)
             plain_ms = cuda_time_ms(
                 lambda: fused_tile.fused_tile_stage1_reference(*args, **kw), reps=3, warm=1)
-            lhs = torch.ones((B, terms * K2_S), dtype=torch.bfloat16, device=dev)
-            rhs = torch.ones((B, terms * K2_S), dtype=torch.bfloat16, device=dev)
+            lhs = torch.ones((B, terms * nseq), dtype=torch.bfloat16, device=dev)
+            rhs = torch.ones((B, terms * nseq), dtype=torch.bfloat16, device=dev)
             library_ms = cuda_time_ms(lambda: torch.matmul(lhs, rhs.T), reps=20)
             del lhs, rhs
-            nbytes = (K2_S * 2 * B + 2 * terms * K2_S + 4 * 2 * 2 * B + 4 * 2 * B
+            nbytes = (nseq * 2 * B + 2 * terms * nseq + 4 * 2 * 2 * B + 4 * 2 * B
                       + 2 * B + 8 * B * (B // 128))
-            bound_ms, bound_by = bound(nbytes, 2.0 * B * B * terms * K2_S)
-            row = dict(n_terms=terms, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms, bound_by = bound(nbytes, 2.0 * B * B * terms * nseq)
+            row = dict(S=nseq, n_terms=terms, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                        library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
                        bound_frac=bound_ms / ms)
-            log(f"K2 timing t={terms}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bf16"
+            log(f"K2 timing S={nseq} t={terms}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bf16"
                 f" matmul {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}),"
                 f" {bound_ms / ms:.3f} of the bound")
         else:
@@ -650,7 +685,7 @@ def compat_kernel_phase(shapes=K3_SHAPES, terms=3):
 
 
 # --------------------------------------------------------------------------
-# synthetic input: the examples/bench_e2e.py recipe, SNP columns only
+# synthetic input: the examples/bench_e2e.py recipe
 # --------------------------------------------------------------------------
 def write_gbk(path, name, seq, cds_list):
     g = len(seq)
@@ -677,10 +712,15 @@ def write_gbk(path, name, seq, cds_list):
         fh.write("//\n")
 
 
-def synth_snp_alignment(out_dir, nseq, g, nsnp, seed=0):
-    """SNP-only alignment (.fa.gz) + 1-based positions + GenBank file:
-    biallelic sites with minor-allele frequency in [0.02, 0.5], ~15% of
-    sites carrying N calls at 3%, CDS features tiling ~85% of the genome."""
+def synth_alignments(out_dir, nseq, g, nsnp, seed=0, full=False):
+    """examples/bench_e2e.py's `synth_alignment` recipe: biallelic sites
+    with minor-allele frequency in [0.02, 0.5], ~15% of sites carrying N
+    calls at 3%, CDS features tiling ~85% of the genome.  Writes the
+    SNP-only alignment `snps.fa.gz` and the GenBank file `ref.gbk`, and
+    with `full` also the whole nseq x g alignment `aln.fa.gz`, the same
+    bytes as bench_e2e's (both alignments from the same draws, in its
+    order) -> (snps.fa.gz, 1-based positions, ref.gbk, aln.fa.gz or
+    None)."""
     rng = np.random.default_rng(seed)
     bases = np.frombuffer(b"ACGT", np.uint8)
     ref = bases[rng.integers(0, 4, size=g)]
@@ -691,15 +731,25 @@ def synth_snp_alignment(out_dir, nseq, g, nsnp, seed=0):
     maf = rng.uniform(0.02, 0.5, size=nsnp)
     n_sites = rng.random(nsnp) < 0.15
     fa = os.path.join(out_dir, "snps.fa.gz")
-    with gzip.open(fa, "wb", compresslevel=1) as fh:
+    fa_full = os.path.join(out_dir, "aln.fa.gz") if full else None
+    row = ref.copy()
+    with contextlib.ExitStack() as stack:
+        fh = stack.enter_context(gzip.open(fa, "wb", compresslevel=1))
+        fh_full = (stack.enter_context(gzip.open(fa_full, "wb", compresslevel=1))
+                   if full else None)
         for s in range(nseq):
             take_minor = rng.random(nsnp) < maf
             col = np.where(take_minor, minor, major)
             ncalls = (rng.random(nsnp) < 0.03) & n_sites
-            col = np.where(ncalls, np.uint8(ord("N")), col)
+            col = np.where(ncalls, np.uint8(ord("N")), col).astype(np.uint8)
             fh.write(b">seq%d\n" % s)
-            fh.write(col.astype(np.uint8).tobytes())
+            fh.write(col.tobytes())
             fh.write(b"\n")
+            if full:
+                row[snp_pos] = col
+                fh_full.write(b">seq%d\n" % s)
+                fh_full.write(row.tobytes())
+                fh_full.write(b"\n")
     cds = []
     p = 150
     while p + 3000 < g:
@@ -709,7 +759,7 @@ def synth_snp_alignment(out_dir, nseq, g, nsnp, seed=0):
         p += ln + int(rng.integers(30, 250))
     gbk = os.path.join(out_dir, "ref.gbk")
     write_gbk(gbk, "SYNPNEUMO.1", ref.tobytes().decode(), cds)
-    return fa, snp_pos + 1, gbk
+    return fa, snp_pos + 1, gbk, fa_full
 
 
 def read_links(dset):
@@ -737,19 +787,50 @@ BLK8_12_FILES = [
 ]
 
 
+def parse_output(path):
+    """Parse one data file of BLK8-BLK12 by its kind -> its record count:
+    TSVs (a header and rows of its width), VCF bodies (>= 8 fields a
+    line), GWESExplorer loci (integers), outliers (a header and rows of 6
+    numbers) and alignments (records of one length), HTML pages (one
+    document)."""
+    text = open(path).read()
+    lines = text.splitlines()
+    ext = os.path.splitext(path)[1]
+    bad = None
+    if ext == ".tsv":
+        widths = {len(ln.split("\t")) for ln in lines}
+        n, bad = len(lines) - 1, len(widths) != 1 or widths.pop() < 2
+    elif ext == ".vcf":
+        body = [ln.split("\t") for ln in lines if not ln.startswith("#")]
+        n, bad = len(body), any(len(f) < 8 for f in body)
+    elif ext == ".loci":
+        n, bad = len(lines), not all(ln.strip().isdigit() for ln in lines)
+    elif ext == ".outliers":
+        rows = [ln.split() for ln in lines[1:]]
+        n = len(rows)
+        bad = lines[0].split()[:2] != ["Pos_1", "Pos_2"] or any(
+            len(f) != 6 or not np.isfinite(np.array(f, np.float64)).all() for f in rows)
+    elif ext == ".aln":
+        heads, seqs = lines[0::2], lines[1::2]
+        n = len(seqs)
+        bad = (not all(h.startswith(">") for h in heads)
+               or len({len(q) for q in seqs}) != 1)
+    elif ext == ".html":
+        n, bad = 1, not (text.startswith("<!DOCTYPE html>") and "</html>" in text)
+    if bad is None or bad or n < 1:
+        raise RuntimeError(f"{path}: does not parse as its kind ({n} records)")
+    return n
+
+
 def check_blk8_12(dset):
-    """Every data file of BLK8-BLK12 present and non-empty, and SR tophits
-    with at least one row; returns the tophit row counts."""
+    """Every data file of BLK8-BLK12 present and parsed (`parse_output`,
+    at least one record each) -> {file: records}."""
     missing = [f for f in BLK8_12_FILES
                if not os.path.isfile(os.path.join(dset, f))
                or os.path.getsize(os.path.join(dset, f)) == 0]
     if missing:
         raise RuntimeError(f"BLK8-BLK12 outputs missing or empty: {missing}")
-    rows = {k: sum(1 for _ in open(os.path.join(dset, "Tophits", f"{k}_tophits.tsv"))) - 1
-            for k in ("sr", "lr")}
-    if rows["sr"] < 1:
-        raise RuntimeError("Tophits/sr_tophits.tsv has no rows")
-    return rows
+    return {f: parse_output(os.path.join(dset, f)) for f in BLK8_12_FILES}
 
 
 def check_tables(sr, lr):
@@ -773,7 +854,7 @@ def small_phase(backend):
 
     d = os.path.join(WORK, f"small_{backend}")
     os.makedirs(d)
-    fa, pos, gbk = synth_snp_alignment(d, nseq=48, g=200_000, nsnp=3000, seed=1)
+    fa, pos, gbk, _ = synth_alignments(d, nseq=48, g=200_000, nsnp=3000, seed=1)
     np.save(os.path.join(d, "pos.npy"), pos)  # for the two-rank runs
     out = {}
     runs = [("cuda", "cuda", {}), ("cpu", "cpu", {})]
@@ -871,6 +952,15 @@ def tsv_bytes(dset, name):
         return fh.read()
 
 
+def srp_ordered(sr_tsv):
+    """An SR table written without the srp order (SnpEff_Annotate=True) as
+    a run without annotation writes it: rows stably sorted by descending
+    srp (perform_mi_computation's order_links; the 15 significant digits
+    of the column keep the order of distinct values)."""
+    lines = sr_tsv.splitlines(keepends=True)
+    return b"".join(sorted(lines, key=lambda ln: -float(ln.split(b"\t")[7])))
+
+
 class SimulatedCrash(Exception):
     pass
 
@@ -886,7 +976,7 @@ def resume_phase():
 
     d = os.path.join(WORK, "resume")
     os.makedirs(d)
-    fa, pos, gbk = synth_snp_alignment(d, nseq=48, g=200_000, nsnp=3000, seed=1)
+    fa, pos, gbk, _ = synth_alignments(d, nseq=48, g=200_000, nsnp=3000, seed=1)
     kw = dict(aln_path=fa, aln_has_all_bases=False, pos=pos, gbk_path=gbk,
               max_blk_sz=1024, SnpEff_Annotate=False, device="cuda",
               lr_retain_links=20000)
@@ -940,7 +1030,7 @@ def slice_phase():
     d = os.path.join(WORK, "slice")
     os.makedirs(d)
     t0 = time.time()
-    fa, pos, gbk = synth_snp_alignment(d, nseq=616, g=2_200_000, nsnp=32768)
+    fa, pos, gbk, _ = synth_alignments(d, nseq=616, g=2_200_000, nsnp=32768)
     log(f"slice input generated in {time.time() - t0:.1f} s")
     dset = os.path.join(d, "ldw_out")
     rank_mi.K1.reset()
@@ -956,7 +1046,7 @@ def slice_phase():
     timings = json.load(open(os.path.join(dset, "timings.json")))
     sr, lr = read_links(dset)
     check_tables(sr, lr)
-    tophit_rows = check_blk8_12(dset)
+    records = check_blk8_12(dset)
     spmd = timings["blk5_phases"]["spmd"]
     log(f"slice BLK5: {json.dumps(blk5_split(timings))}")
     blk8_12 = {k: timings.get(k) for k in (
@@ -964,7 +1054,7 @@ def slice_phase():
         "blk11_network_plot", "blk12_lr_analysis")}
     log(f"slice wall {wall:.1f} s; timings.json: {json.dumps(timings)}")
     log(f"slice BLK8-BLK12 (s): {json.dumps(blk8_12)}, together"
-        f" {sum(v or 0 for v in blk8_12.values()):.3f} s; tophit rows {tophit_rows}")
+        f" {sum(v or 0 for v in blk8_12.values()):.3f} s; records {records}")
     log(f"slice: sr rows {len(sr)}, lr rows {len(lr)}, tiles {spmd['tiles']},"
         f" retries {spmd['retries']}, fallbacks {spmd['fallbacks']},"
         f" K1 launches {launches} {by_bucket}")
@@ -1006,12 +1096,36 @@ def sr_pairs_from_positions(pos, g, sr_dist):
 
 HEADLINE_SNPS = 131072
 LR_STREAM_BUDGET = 67_108_864  # 64 MiB: 9 slabs of 1024 x 4096, panels of 7
+# The JAX package's recorded output counts on these synthetic inputs
+# (E2E_r05.json / E2E_r04.json; BENCH_r05.json "pipeline_*", "streaming_*")
+E2E_SR_ROWS, E2E_SR_PAIRS, E2E_TILES = 394_599, 156_118_853, 528
+PIPE_SR_LINKS, PIPE_LR_ROWS, PIPE_SR_PAIRS = 396_094, 1_000_426, 156_174_006
+STREAM_UPLOADS = 17
+# rows on one side only per table row: the reference's own CPU-vs-TPU
+# spread (CHIP_PARITY_r05.json; tests/test_torch_pipeline.py FRINGE_RATE)
+FRINGE_RATE = 2 / 970  # SR: 2 of 970 rows
+LR_FRINGE_RATE = 2 / 20314  # LR: 2 of 20,314 rows
+
+
+def fringe_bound(n_rows, rate=FRINGE_RATE):
+    return max(2, int(round(rate * n_rows)))
+
+
+BLOCKS = ("blk1_parse_alignment", "blk2_annotation_parse", "blk3_cds_diversity",
+          "blk4_hamming_weights", "blk5_mi_computation", "blk6_ld_map",
+          "blk7_gwes_plots", "blk8_annotation_tophits", "blk9_tanglegram",
+          "blk10_gwes_explorer", "blk11_network_plot", "blk12_lr_analysis")
 
 
 def headline_phase(sr_reduce="auto"):
-    """The main path at 616 genomes x 2.2 Mb x 131,072 SNPs, BLK1-BLK7;
-    with sr_reduce="host" the SR table is copied to the host and reduced
-    there instead (for comparison; the script itself runs "auto")."""
+    """examples/bench_e2e.py's run on the card: the whole 616 genomes x 2.2
+    Mb alignment (131,072 planted SNPs) through BLK1-BLK12 with its config
+    (aln_has_all_bases, SnpEff_Annotate, lr_retain_links 1,000,000,
+    max_blk_sz 4096, backend "spmd"), against the JAX package's recorded
+    counts; with sr_reduce="host" the SR table is copied to the host and
+    reduced there instead (for comparison; the script itself runs
+    "auto").  The same pass writes the SNP-only alignment and positions,
+    the later headline phases' input."""
     import torch
 
     import ldweaver_tpu_torch
@@ -1021,17 +1135,23 @@ def headline_phase(sr_reduce="auto"):
     d = os.path.join(WORK, "headline")
     os.makedirs(d)
     t0 = time.time()
-    fa, pos, gbk = synth_snp_alignment(d, nseq=616, g=G, nsnp=HEADLINE_SNPS)
+    fa, pos, gbk, fa_full = synth_alignments(d, nseq=616, g=G, nsnp=HEADLINE_SNPS,
+                                             full=True)
     np.save(os.path.join(d, "pos.npy"), pos)
-    log(f"headline input generated in {time.time() - t0:.1f} s")
+    gen_s = time.time() - t0
+    log(f"headline input generated in {gen_s:.1f} s: {os.path.getsize(fa_full)}"
+        f" bytes of gzip alignment")
     dset = os.path.join(d, "ldw_out")
     torch.cuda.empty_cache()
     rank_mi.K1.reset()
     t0 = time.time()
-    ldweaver_tpu_torch.ldweaver(  # save_additional_outputs: the kept positions
-        dset=dset, aln_path=fa, aln_has_all_bases=False, pos=pos,
-        gbk_path=gbk, backend="spmd", max_blk_sz=4096, SnpEff_Annotate=False,
-        save_additional_outputs=True, sr_reduce=sr_reduce, device="cuda",
+    # save_additional_outputs keeps the kept positions for the SR-pair
+    # count; it writes extra files and changes no link table
+    ldweaver_tpu_torch.ldweaver(
+        dset=dset, aln_path=fa_full, aln_has_all_bases=True, gbk_path=gbk,
+        backend="spmd", max_blk_sz=4096, SnpEff_Annotate=True,
+        lr_retain_links=1_000_000, save_additional_outputs=True,
+        sr_reduce=sr_reduce, device="cuda",
     )
     torch.cuda.synchronize()
     wall = time.time() - t0
@@ -1041,16 +1161,18 @@ def headline_phase(sr_reduce="auto"):
     spmd = timings["blk5_phases"]["spmd"]
     sr, lr = read_links(dset)
     check_tables(sr, lr)
+    records = check_blk8_12(dset)
     z = np.load(os.path.join(dset, "Additional_Outputs", "snp_ACGTN.npz"))
     kept, g = z["pos"], int(z["g"])
     host_sr = sr_pairs_from_positions(kept, g, SR_DIST)
-    blocks = {k: v for k, v in timings.items() if k.startswith("blk") and k != "blk5_phases"}
-    res = dict(wall_s=wall, nsnp=int(kept.size), tiles=spmd["tiles"],
+    blocks = {k: timings.get(k) for k in BLOCKS}
+    res = dict(wall_s=wall, gen_s=gen_s, nsnp=int(kept.size), g=g, tiles=spmd["tiles"],
+               retries=spmd["retries"], fallbacks=spmd["fallbacks"],
                k1_launches=launches, k1_by_bucket={str(k): v for k, v in by_bucket.items()},
                sr_pairs=spmd["sr_pairs"], sr_pairs_from_positions=host_sr,
-               sr_rows=len(sr), lr_rows=len(lr), blocks=blocks,
+               sr_rows=len(sr), lr_rows=len(lr), blocks=blocks, records=records,
                blk5=blk5_split(timings))
-    log(f"headline (616 x 131,072 SNPs, BLK1-BLK7, sr_reduce={sr_reduce!r}):"
+    log(f"headline e2e (616 x 2.2 Mb alignment, BLK1-BLK12, sr_reduce={sr_reduce!r}):"
         f" {json.dumps(res)}")
     log(f"headline: wall {wall:.1f} s, BLK5 {timings['blk5_mi_computation']:.2f} s"
         f" (dispatch {spmd['dispatch_s']} s, finish {spmd['finish_s']} s, SR"
@@ -1061,20 +1183,42 @@ def headline_phase(sr_reduce="auto"):
         f" memory {spmd['peak_bytes']} bytes ({spmd['peak_tiles_bytes']} after"
         f" the tiles; pool {spmd['pool_bytes']} bytes); flat model"
         f" {flat_peak_bytes(spmd['sr_pairs'])} bytes for {spmd['sr_pairs']} pairs")
+    log(f"headline per-block walls (s): {json.dumps(blocks)}; SR rows {len(sr)}"
+        f" (JAX record {E2E_SR_ROWS}), SR pairs {spmd['sr_pairs']} (JAX record"
+        f" {E2E_SR_PAIRS}), LR rows {len(lr)}")
+    missing = [k for k, v in blocks.items() if v is None]
+    if missing:
+        raise RuntimeError(f"headline: blocks missing from timings.json: {missing}")
     if spmd["sr_reduce"] != ("host" if sr_reduce == "host" else "device"):
         raise RuntimeError(f"headline: the SR table reduced on the {spmd['sr_reduce']}")
     if spmd["peak_bytes"] > spmd["peak_tiles_bytes"] + flat_peak_bytes(spmd["sr_pairs"]):
         raise RuntimeError("headline: BLK5 peak over the tiles' peak plus the flat model")
-    if spmd["tiles"] != 528 or launches < 528:
+    if spmd["tiles"] != E2E_TILES or launches < E2E_TILES or spmd["fallbacks"]:
         raise RuntimeError(f"headline: K1 launched {launches} times for"
-                           f" {spmd['tiles']} tiles (528 expected)")
-    if spmd["sr_pairs"] != host_sr:
+                           f" {spmd['tiles']} tiles ({E2E_TILES} expected),"
+                           f" {spmd['fallbacks']} fallbacks")
+    if not spmd["sr_pairs"] == host_sr == E2E_SR_PAIRS:
         raise RuntimeError(f"headline: {spmd['sr_pairs']} SR pairs on the card,"
-                           f" {host_sr} from the positions")
-    inputs = dict(fa=fa, pos=pos, gbk=gbk, dset=dset)
+                           f" {host_sr} from the positions, {E2E_SR_PAIRS} recorded")
+    if abs(len(sr) - E2E_SR_ROWS) > fringe_bound(E2E_SR_ROWS):
+        raise RuntimeError(f"headline: {len(sr)} SR rows against the recorded"
+                           f" {E2E_SR_ROWS} (bound {fringe_bound(E2E_SR_ROWS)})")
+    # the later headline runs (fast, two ranks) run without annotation,
+    # which orders the SR table by srp (perform_mi_computation's
+    # order_links): their reference is this run's tables in that order
+    tables = os.path.join(d, "tables")
+    os.makedirs(os.path.join(tables, "Temp"))
+    with open(os.path.join(tables, "Temp", "sr_links.tsv"), "wb") as fh:
+        fh.write(srp_ordered(tsv_bytes(dset, "sr_links.tsv")))
+    shutil.copy(os.path.join(dset, "Temp", "lr_links.tsv"), os.path.join(tables, "Temp"))
+    inputs = dict(fa=fa, pos=pos, gbk=gbk, tables=tables)
     with open(os.path.join(d, "inputs.json"), "wt") as fh:  # for the two ranks
         json.dump(dict(inputs, pos=os.path.join(d, "pos.npy")), fh)
-    return by_bucket, inputs, spmd["sr_pairs"]
+    recorded = dict(sr_rows=[len(sr), E2E_SR_ROWS], sr_pairs=[spmd["sr_pairs"], E2E_SR_PAIRS],
+                    tiles=[spmd["tiles"], E2E_TILES], fallbacks=[spmd["fallbacks"], 0],
+                    retries=[spmd["retries"], 0], lr_rows=len(lr), walls_s=blocks,
+                    wall_s=wall)
+    return by_bucket, inputs, spmd["sr_pairs"], recorded
 
 
 HEADLINE_FAST_BUDGET = 50_331_648  # 48 MiB: 11 slabs of 616 x 4096, panels of 9
@@ -1083,8 +1227,8 @@ HEADLINE_FAST_BUDGET = 50_331_648  # 48 MiB: 11 slabs of 616 x 4096, panels of 9
 def headline_fast_phase(inputs, depth=4):
     """backend="fast" on the headline input, the rank codes streamed
     through a 48 MiB slab budget, `depth` tiles dispatched ahead, the SR
-    table reduced on the card, BLK1-BLK7, against the headline spmd run
-    (`inputs` from headline_phase)."""
+    table reduced on the card, BLK1-BLK7, against the headline e2e run's
+    tables (`inputs` from headline_phase; the SR table in srp order)."""
     import torch
 
     import ldweaver_tpu_torch
@@ -1107,15 +1251,15 @@ def headline_fast_phase(inputs, depth=4):
     timings = json.load(open(os.path.join(dset, "timings.json")))
     blk5 = timings["blk5_phases"]
     fast = blk5["fast"]
-    sr_same = tsv_bytes(dset, "sr_links.tsv") == tsv_bytes(inputs["dset"], "sr_links.tsv")
+    sr_same = tsv_bytes(dset, "sr_links.tsv") == tsv_bytes(inputs["tables"], "sr_links.tsv")
     lr_f = tsv_bytes(dset, "lr_links.tsv").splitlines()
-    lr_s = tsv_bytes(inputs["dset"], "lr_links.tsv").splitlines()
+    lr_s = tsv_bytes(inputs["tables"], "lr_links.tsv").splitlines()
     lr_same_set = sorted(lr_f) == sorted(lr_s)
     blocks = {k: v for k, v in timings.items() if k.startswith("blk") and k != "blk5_phases"}
     res = dict(wall_s=wall, k1_launches=launches,
                k1_by_bucket={str(k): v for k, v in by_bucket.items()},
-               sr_tsv_byte_identical_to_spmd=sr_same, lr_rows=len(lr_f),
-               lr_set_equal_to_spmd=lr_same_set, lr_row_order_equal=lr_f == lr_s,
+               sr_tsv_byte_identical_to_e2e=sr_same, lr_rows=len(lr_f),
+               lr_set_equal_to_e2e=lr_same_set, lr_row_order_equal=lr_f == lr_s,
                blocks=blocks, blk5=blk5_split(timings, "fast"),
                max_slabs=fast["max_slabs"], panel=fast["panel"])
     log(f"headline fast (616 x 131,072 SNPs, budget {HEADLINE_FAST_BUDGET} bytes,"
@@ -1135,7 +1279,7 @@ def headline_fast_phase(inputs, depth=4):
         raise RuntimeError(f"headline fast: the slab pool ({fast['pool_bytes']} bytes)"
                            f" exceeds 60% of the budget")
     if not (sr_same and lr_same_set):
-        raise RuntimeError("headline fast: the link tables differ from the spmd run's")
+        raise RuntimeError("headline fast: the link tables differ from the e2e run's")
     if not (fast["streaming"] and fast["max_slabs"] == 11 and fast["panel"] == 9):
         raise RuntimeError(f"headline fast: not streamed as planned: {fast}")
     if fast["tiles"] != 528 or launches < 528:
@@ -1154,7 +1298,7 @@ def depth_ab(depths=(4, 1, 1, 4)):
         shutil.rmtree(WORK)
     os.makedirs(WORK)
     build()
-    _, inputs, _ = timed("headline", headline_phase)
+    _, inputs, _, _ = timed("headline", headline_phase)
     for depth in depths:
         shutil.rmtree(os.path.join(WORK, "headline", f"ldw_fast_depth{depth}"),
                       ignore_errors=True)
@@ -1166,7 +1310,7 @@ def cli_phase():
     --backend spmd, and with the default backend (fast)."""
     d = os.path.join(WORK, "cli")
     os.makedirs(d)
-    fa, pos, gbk = synth_snp_alignment(d, nseq=48, g=200_000, nsnp=3000, seed=1)
+    fa, pos, gbk, _ = synth_alignments(d, nseq=48, g=200_000, nsnp=3000, seed=1)
     pos_path = os.path.join(d, "snps.pos")
     np.savetxt(pos_path, pos, fmt="%d")
     for backend in ("spmd", "fast"):
@@ -1260,6 +1404,14 @@ def device_time_split(fn, top=6):
 # --------------------------------------------------------------------------
 # 6. the LR-only sweep
 # --------------------------------------------------------------------------
+def canon_topk(a, b, v):
+    """A top-k's (pair, value) list in one order: pairs as (low, high),
+    sorted."""
+    lo, hi = np.minimum(a, b), np.maximum(a, b)
+    o = np.lexsort((hi, lo))
+    return lo[o].tolist(), hi[o].tolist(), v[o].tolist()
+
+
 def lr_phase():
     import torch
 
@@ -1350,12 +1502,7 @@ def lr_phase():
     k1s, k2s = rank_mi.K1.launches, fused_tile.K2.launches
     k1s_by_bucket = dict(rank_mi.K1.by_bucket)
 
-    def canon(a, b, v):
-        lo, hi = np.minimum(a, b), np.maximum(a, b)
-        o = np.lexsort((hi, lo))
-        return lo[o].tolist(), hi[o].tolist(), v[o].tolist()
-
-    same = canon(pos1, pos2, mi) == canon(s1, s2, smi)
+    same = canon_topk(pos1, pos2, mi) == canon_topk(s1, s2, smi)
     cache = state.slab_cache
     out.update(stream_prep_s=prep_s, stream_s=stream_s, stream_k1_launches=k1s,
                stream_k2_launches=k2s, stream_uploads=cache.uploads,
@@ -1373,6 +1520,213 @@ def lr_phase():
 
 
 # --------------------------------------------------------------------------
+# 6b. bench.py's pipeline and streaming legs
+# --------------------------------------------------------------------------
+def pipeline_leg_inputs(nsnp, nseq):
+    """bench.py's `leg_pipeline` input: bench_synth(nsnp, nseq, seed=1) and
+    a 3-cluster random paint (default_rng(2)) -> (SnpData, w, CdsVar)."""
+    from ldweaver_tpu_torch.core.cds import CdsVar, Clusters
+
+    sd, w = bench_snp_data(nsnp, nseq, seed=1)
+    nclust = 3  # reference default num_clusts_CDS
+    cds_var = CdsVar(
+        var_estimate=np.zeros(1), cds_start=np.zeros(1, np.int64),
+        cds_end=np.zeros(1, np.int64), clusts=Clusters(np.array([1]), 0.0),
+        paint=np.random.default_rng(2).integers(1, nclust + 1, size=nsnp)
+        .astype(np.int64),
+        ref=np.array(["A"] * nsnp), alt=np.array([""] * nsnp),
+        allele_table=sd.acgtn_table, nclust=nclust,
+    )
+    return sd, w, cds_var
+
+
+def pipeline_leg(nsnp, nseq, block, device, out_dir):
+    """bench.py's `leg_pipeline` in the port: `perform_mi_computation(
+    backend="spmd")` on `pipeline_leg_inputs` -> {sr_links, lr_rows,
+    wall_s, phases}."""
+    from ldweaver_tpu_torch.core.sweep import perform_mi_computation
+
+    sd, w, cds_var = pipeline_leg_inputs(nsnp, nseq)
+    phases = {}
+    lr_path = os.path.join(out_dir, "lr_links.tsv")
+    t0 = time.time()
+    links = perform_mi_computation(
+        sd, w, cds_var, lr_save_path=lr_path,
+        sr_save_path=os.path.join(out_dir, "sr_links.tsv"), plt_folder=None,
+        sr_dist=SR_DIST, lr_retain_links=1e6, max_blk_sz=block, srp_cutoff=3.0,
+        backend="spmd", verbose=False, phase_timings=phases, device=device,
+    )
+    wall = time.time() - t0
+    with open(lr_path) as fh:
+        lr_rows = sum(1 for _ in fh)
+    return dict(sr_links=len(links), lr_rows=lr_rows, wall_s=wall, phases=phases)
+
+
+def pipeline_leg_phase():
+    """bench.py's pipeline leg at its size, 131,072 SNPs x 616 genomes,
+    block 4096, on the card: the SR links and LR rows against the JAX
+    package's recorded counts, within the reference's fringe."""
+    import torch
+
+    from ldweaver_tpu_torch.ops import rank_mi
+
+    d = os.path.join(WORK, "pipeline_leg")
+    os.makedirs(d)
+    torch.cuda.empty_cache()
+    rank_mi.K1.reset()
+    res = pipeline_leg(HEADLINE_SNPS, S, B, "cuda", d)
+    launches, by_bucket = rank_mi.K1.launches, dict(rank_mi.K1.by_bucket)
+    spmd = res["phases"]["spmd"]
+    sr_bound = fringe_bound(PIPE_SR_LINKS)
+    lr_bound = fringe_bound(PIPE_LR_ROWS, LR_FRINGE_RATE)
+    log(f"pipeline leg (bench synth 131,072 x 616, block 4096, spmd): wall"
+        f" {res['wall_s']:.1f} s, SR pairs {spmd['sr_pairs']} (JAX record"
+        f" {PIPE_SR_PAIRS}), SR links {res['sr_links']} (JAX record"
+        f" {PIPE_SR_LINKS}, bound {sr_bound}), LR rows {res['lr_rows']} (JAX"
+        f" record {PIPE_LR_ROWS}, bound {lr_bound}); K1 launches {launches}"
+        f" {by_bucket}; blk5_phases {json.dumps(res['phases'])}")
+    if spmd["tiles"] != E2E_TILES or launches < E2E_TILES or spmd["fallbacks"]:
+        raise RuntimeError(f"pipeline leg: K1 launched {launches} times for"
+                           f" {spmd['tiles']} tiles, {spmd['fallbacks']} fallbacks")
+    if spmd["sr_pairs"] != PIPE_SR_PAIRS:
+        raise RuntimeError(f"pipeline leg: {spmd['sr_pairs']} SR pairs, {PIPE_SR_PAIRS}"
+                           f" recorded")
+    if abs(res["sr_links"] - PIPE_SR_LINKS) > sr_bound:
+        raise RuntimeError(f"pipeline leg: {res['sr_links']} SR links against the"
+                           f" recorded {PIPE_SR_LINKS}")
+    if abs(res["lr_rows"] - PIPE_LR_ROWS) > lr_bound:
+        raise RuntimeError(f"pipeline leg: {res['lr_rows']} LR rows against the"
+                           f" recorded {PIPE_LR_ROWS}")
+    recorded = dict(sr_links=[res["sr_links"], PIPE_SR_LINKS],
+                    lr_rows=[res["lr_rows"], PIPE_LR_ROWS], tiles=[spmd["tiles"], E2E_TILES],
+                    sr_pairs=[spmd["sr_pairs"], PIPE_SR_PAIRS], wall_s=res["wall_s"],
+                    blk5_phases=res["phases"])
+    return by_bucket, recorded
+
+
+STREAM_SNPS, STREAM_SEQS = 32768, 16384  # bench.py's streaming leg
+
+
+def streaming_leg(nsnp, nseq, block, device, topk=1024):
+    """bench.py's `leg_streaming` in the port, and the same sweep resident:
+    `fast_lr_topk(topk)` on bench_synth(nsnp, nseq, seed=3) streamed
+    through bench.py's budget, 0.75 of the slabs, so that the usable 60%
+    holds fewer than all of them (one warm call, then one counted call), then
+    resident -> dict with both top-k results, the counted call's uploads,
+    hits and K1 / K2 launches, the slab plan, and on the card the device
+    time split of one more streamed call (`device_time_split`)."""
+    import torch
+
+    from ldweaver_tpu_torch.ops import fused_tile, rank_mi
+    from ldweaver_tpu_torch.parallel.fast_sweep import fast_lr_topk, prepare_fast_sweep
+
+    sd, w = bench_snp_data(nsnp, nseq, seed=3)
+    budget = int(nseq * block * 0.75 * -(-nsnp // block))
+    out = dict(budget=budget, slab_bytes=nseq * block)
+    t0 = time.time()
+    state = prepare_fast_sweep(sd, w, block=block, hbm_budget_bytes=budget,
+                               device=device)
+    cache = state.slab_cache
+    out.update(streaming=state.streaming, prep_s=time.time() - t0,
+               max_slabs=cache.max_slabs if cache else None, panel=state.panel,
+               pool_bytes=cache.pool.numel() if cache else None)
+    if not state.streaming:
+        return out
+    t0 = time.time()
+    fast_lr_topk(state=state, sr_dist=SR_DIST, topk=topk)
+    out["warm_s"] = time.time() - t0
+    u0, h0 = cache.uploads, cache.hits
+    rank_mi.K1.reset()
+    fused_tile.K2.reset()
+    t0 = time.time()
+    out["streamed"] = fast_lr_topk(state=state, sr_dist=SR_DIST, topk=topk)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    out.update(wall_s=time.time() - t0, uploads=cache.uploads - u0,
+               hits=cache.hits - h0, k1_launches=rank_mi.K1.launches,
+               k1_by_bucket=dict(rank_mi.K1.by_bucket),
+               k2_launches=fused_tile.K2.launches,
+               tiles={k: len(v) for k, v in state.buckets.items()})
+    if device != "cpu":  # where a streamed call's time goes, on the card
+        out["split"] = device_time_split(
+            lambda: fast_lr_topk(state=state, sr_dist=SR_DIST, topk=topk))
+    del state, cache
+    if device != "cpu":
+        torch.cuda.empty_cache()
+    t0 = time.time()
+    state = prepare_fast_sweep(sd, w, block=block, device=device)
+    out.update(resident_streaming=state.streaming,
+               resident_pool_bytes=state.dev.codes.numel(),
+               resident_prep_s=time.time() - t0)
+    fast_lr_topk(state=state, sr_dist=SR_DIST, topk=topk)
+    rank_mi.K1.reset()
+    fused_tile.K2.reset()
+    t0 = time.time()
+    out["resident"] = fast_lr_topk(state=state, sr_dist=SR_DIST, topk=topk)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    out.update(resident_wall_s=time.time() - t0,
+               resident_k1_by_bucket=dict(rank_mi.K1.by_bucket),
+               resident_k2_launches=fused_tile.K2.launches)
+    return out
+
+
+def streaming_leg_phase():
+    """bench.py's streaming leg at its size, 32,768 SNPs x 16,384 genomes,
+    block 4096, through 0.75 of its 8 slabs of 67.1 MB on the card: the
+    run streams, its uploads are counted, and its top-1024 equals the
+    resident run's apart from near-ties; then K1 at the leg's buckets and
+    K2 at S = 16,384, each against its plain version."""
+    t0 = time.time()
+    res = streaming_leg(STREAM_SNPS, STREAM_SEQS, B, "cuda")
+    log(f"streaming leg (bench synth 32,768 x 16,384, block 4096, top-k 1024):"
+        f" {time.time() - t0:.1f} s in all, budget {res['budget']} bytes"
+        f" ({res['slab_bytes']} a slab): streaming {res['streaming']},"
+        f" {res['max_slabs']} slabs, panels of {res['panel']}, prepared in"
+        f" {res['prep_s']:.1f} s")
+    if not res["streaming"]:
+        raise RuntimeError("streaming leg: the budget did not stream")
+    one_side, diff = assert_topk_agree(res["resident"], res["streamed"], 1024)
+    # the visiting order (bucket or panel) breaks exact ties: the same
+    # pairs and values in one canonical order
+    exact = canon_topk(*res["resident"]) == canon_topk(*res["streamed"])
+    nb = STREAM_SNPS // B
+    log(f"streaming leg: warm call {res['warm_s']:.2f} s, counted call"
+        f" {res['wall_s']:.3f} s (device busy {res['split']['device_busy_s']:.3f} s"
+        f" in a profiled call), {res['uploads']} slab uploads (JAX record"
+        f" {STREAM_UPLOADS}), {res['hits']} hits; K2 {res['k2_launches']}"
+        f" launches, K1 {res['k1_launches']} {res['k1_by_bucket']}; tiles"
+        f" {res['tiles']}; resident (pool {res['resident_pool_bytes']} bytes,"
+        f" streaming {res['resident_streaming']}) call {res['resident_wall_s']:.3f} s;"
+        f" top-1024 streamed vs resident: {one_side} pairs on one side only"
+        f" (near-ties), MI max abs diff {diff:.2e}, the same pairs and values"
+        f" {exact}; resident prepared in {res['resident_prep_s']:.1f} s")
+    ntiles = sum(res["tiles"].values())
+    # the slab plan and the panel order are host logic: the counted call
+    # uploads what the JAX package's did (tests/test_torch_recorded_runs.py)
+    if res["uploads"] != STREAM_UPLOADS or res["k1_launches"] + res["k2_launches"] != ntiles:
+        raise RuntimeError(f"streaming leg: {res['uploads']} uploads, K1"
+                           f" {res['k1_launches']} + K2 {res['k2_launches']}"
+                           f" launches for {ntiles} tiles")
+    if res["resident_streaming"] or res["resident_pool_bytes"] != nb * res["slab_bytes"]:
+        raise RuntimeError("streaming leg: the resident run does not hold its"
+                           f" {nb} slabs on the card")
+    # the kernels at the leg's depth: K1 at its launched buckets, K2
+    k1_rows = kernel_phase(STREAM_SEQS, LR_BUCKETS, 20261020)
+    unmeasured = set(res["k1_by_bucket"]) - set(k1_rows)
+    if unmeasured:
+        raise RuntimeError(f"streaming leg: K1 launched in buckets not measured at"
+                           f" S={STREAM_SEQS}: {sorted(unmeasured)}")
+    k2_row = fused_phase(nseq=STREAM_SEQS)
+    recorded = dict(uploads=[res["uploads"], STREAM_UPLOADS], streaming=res["streaming"],
+                    wall_s=res["wall_s"], resident_wall_s=res["resident_wall_s"],
+                    device_busy_s=res["split"]["device_busy_s"],
+                    budget_bytes=res["budget"], slab_bytes=res["slab_bytes"],
+                    one_side_near_ties=one_side, identical=exact)
+    return k1_rows, k2_row, res, recorded
+
+
+# --------------------------------------------------------------------------
 # 7. the compat path
 # --------------------------------------------------------------------------
 def compat_phase():
@@ -1383,7 +1737,7 @@ def compat_phase():
 
     d = os.path.join(WORK, "compat")
     os.makedirs(d)
-    fa, pos, gbk = synth_snp_alignment(d, nseq=616, g=2_200_000, nsnp=8192, seed=2)
+    fa, pos, gbk, _ = synth_alignments(d, nseq=616, g=2_200_000, nsnp=8192, seed=2)
     dset = os.path.join(d, "ldw_out")
     compat_mi.K3.reset()
     t0 = time.time()
@@ -1610,7 +1964,7 @@ def multi_big_phase(inputs):
     exceed it, so the range budget is sr_reduce.PART_RANGE_MIN and the
     grid splits into more than 2 k2 ranges), the LR-only sweep at 1024 x
     131,072 and the sharded sweep through K3.  Each rank's headline TSVs
-    byte-identical to the headline phase's, its BLK5 peak within its
+    byte-identical to the headline phase's tables, its BLK5 peak within its
     peak after the tiles plus `sr_reduce.part_peak_bytes` of its kept
     pairs, its top-1024 equal to the lr phase's resident call, its
     sharded result equal to the single-process one (sharded_phase)."""
@@ -1630,7 +1984,7 @@ def multi_big_phase(inputs):
         h = got["headline"]
         spmd = h["timings"]["blk5_phases"]["spmd"]
         dset = os.path.join(WORK, "multi", "headline", f"r{rank}")
-        same = {n: tsv_bytes(dset, n) == tsv_bytes(inputs["dset"], n)
+        same = {n: tsv_bytes(dset, n) == tsv_bytes(inputs["tables"], n)
                 for n in ("sr_links.tsv", "lr_links.tsv")}
         for k, v in h["k1_by_bucket"].items():
             by_bucket[k] = by_bucket.get(k, 0) + v
@@ -1695,7 +2049,7 @@ def multi_auto_phase(inputs, sr_pairs):
     holding all of them at the largest range budget bounds the first,
     `sr_reduce.flat_peak_bytes` of the whole table is the second.  Both
     ranks must take "part", each rank's peak stay within the part model,
-    and its TSVs be byte-identical to the headline phase's."""
+    and its TSVs be byte-identical to the headline phase's tables."""
     import torch
 
     from ldweaver_tpu_torch.parallel import sr_reduce as sr
@@ -1714,7 +2068,7 @@ def multi_auto_phase(inputs, sr_pairs):
         h = read_rank("auto", rank)["headline"]
         spmd = h["timings"]["blk5_phases"]["spmd"]
         dset = os.path.join(WORK, "multi", "auto", f"r{rank}")
-        same = {n: tsv_bytes(dset, n) == tsv_bytes(inputs["dset"], n)
+        same = {n: tsv_bytes(dset, n) == tsv_bytes(inputs["tables"], n)
                 for n in ("sr_links.tsv", "lr_links.tsv")}
         model = sr.part_peak_bytes(spmd["sr_pairs"], spmd.get("range_budget", 0))
         res[f"r{rank}"] = dict(
@@ -2122,7 +2476,7 @@ def k1_line(row, launches, **extra):
 def k2_line(row, launches, **extra):
     t = "" if row["n_terms"] == 3 else f",t={row['n_terms']}"
     return dict(
-        name=f"fused_tile_stage1[Rf=2,Rt=2,pure,S=1024{t}]", route="cuda",
+        name=f"fused_tile_stage1[Rf=2,Rt=2,pure,S={row['S']}{t}]", route="cuda",
         source="ldweaver_tpu_torch/csrc/fused_tile.cu",
         replaces="ldweaver_tpu/ops/pallas_fused_tile.py:42",
         launches=launches, **{k: row[k] for k in LINE_KEYS}, **extra)
@@ -2160,10 +2514,13 @@ def main():
     timed("resume", resume_phase)
     launches, by_bucket = timed("slice", slice_phase)
     timed("cli", cli_phase)
-    headline_by_bucket, headline_inputs, headline_sr_pairs = timed("headline",
-                                                                   headline_phase)
+    headline_by_bucket, headline_inputs, headline_sr_pairs, e2e_rec = timed(
+        "headline", headline_phase)
     fast_by_bucket = timed("headline fast", headline_fast_phase, headline_inputs)
     lr, lr_k1, lr_stream_k1 = timed("lr", lr_phase)
+    pipe_by_bucket, pipe_rec = timed("pipeline leg", pipeline_leg_phase)
+    k1_stream, k2_stream, stream, stream_rec = timed("streaming leg",
+                                                     streaming_leg_phase)
     k3_by_shape = timed("compat", compat_phase)
     k3_sharded = timed("sharded", sharded_phase)
     timed("one card", one_card_phase)
@@ -2180,7 +2537,7 @@ def main():
     # with the launches of the path that runs the kernel at that shape (the
     # S = 616 rows also with the headline run's)
     unmeasured = (set(headline_by_bucket) | set(fast_by_bucket)
-                  | set(multi_by_bucket)) - set(k1_slice)
+                  | set(multi_by_bucket) | set(pipe_by_bucket)) - set(k1_slice)
     if unmeasured:
         raise RuntimeError(f"K1 launched on the headline runs in buckets not"
                            f" measured at its shape: {sorted(unmeasured)}")
@@ -2194,7 +2551,8 @@ def main():
         for (Rf, Rt, pure), row in rows.items():
             extra = ({"launches_headline": headline_by_bucket.get((Rf, Rt, pure), 0),
                       "launches_headline_fast": fast_by_bucket.get((Rf, Rt, pure), 0),
-                      "launches_multi_headline": multi_by_bucket.get((Rf, Rt, pure), 0)}
+                      "launches_multi_headline": multi_by_bucket.get((Rf, Rt, pure), 0),
+                      "launches_pipeline_leg": pipe_by_bucket.get((Rf, Rt, pure), 0)}
                      if rows is k1_slice else
                      {"launches_lr_streamed": lr_stream_k1.get((Rf, Rt, pure), 0),
                       "launches_multi_lr": multi_lr_by_bucket.get((Rf, Rt, pure), 0)})
@@ -2204,6 +2562,14 @@ def main():
     kernels.append(k2_line(k2_row, lr["k2_launches"],
                            launches_lr_streamed=lr["stream_k2_launches"],
                            launches_multi_lr=multi_k2))
+    # the streaming leg's depth, S = 16,384: launches of its streamed call
+    # (the counted one), and of the resident call beside them
+    for key, row in k1_stream.items():
+        kernels.append(k1_line(row, stream["k1_by_bucket"].get(key, 0),
+                               launches_resident=stream["resident_k1_by_bucket"]
+                               .get(key, 0)))
+    kernels.append(k2_line(k2_stream, stream["k2_launches"],
+                           launches_resident=stream["resident_k2_launches"]))
     k3_by_shape = dict(k3_by_shape)
     k3_by_shape[SHARDED_B, SHARDED_B] = k3_sharded  # the sharded sweep's tile
     unmeasured = set(k3_by_shape) - set(k3_rows)
@@ -2228,6 +2594,8 @@ def main():
         for (F, T), row in trows["k3"].items():
             kernels.append(k3_line(row, F, T, trows["k3_host_launches"]
                                    if (F, T) == (SHARDED_B, SHARDED_B) else 0))
+    print(json.dumps({"recorded": {"e2e": e2e_rec, "pipeline_leg": pipe_rec,
+                                   "streaming_leg": stream_rec}}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     import torch
