@@ -74,7 +74,7 @@ from ldweaver_tpu_torch.parallel.spmd_sweep import (
     to_host,
 )
 from ldweaver_tpu_torch.support import check_supported, resolve_device
-from ldweaver_tpu_torch.utils.profiling import annotate, maybe_trace
+from ldweaver_tpu_torch.utils.profiling import maybe_trace, span
 from ldweaver_tpu_torch.utils.r_compat import quantile_type7
 
 
@@ -388,7 +388,7 @@ class FastTileRunner:
 
     # -- dispatch: queue device work, do NOT wait for it ----------------
     def dispatch(self, bi: int, bj: int, lane: int = 0) -> dict:
-        with annotate("fast_dispatch"):
+        with span("ldw.blk5.dispatch"):
             return self._dispatch(bi, bj, lane)
 
     def _dispatch(self, bi: int, bj: int, lane: int) -> dict:
@@ -466,7 +466,7 @@ class FastTileRunner:
         model's sums follow the SR table's order).  SR is single-sourced
         from the primary result: its compaction is exact whatever the LR
         side."""
-        with annotate("fast_finish"):
+        with span("ldw.blk5.finish"):
             return self._finish(pending, lr_rows_sink)
 
     def _finish(self, pending: dict, lr_rows_sink: Optional[Callable]):

@@ -5,7 +5,8 @@ shared library with a plain C interface, `_build/lib<name>.so` inside the
 package (git ignores `_build/`), loaded with ctypes.  A library is rebuilt
 when it is missing or older than its source or a header in `csrc/`.
 `build` starts one nvcc per source, all at once, and waits for them;
-`load` builds on first use.
+`load` builds on first use; its spans "ldw.kernel.build" and
+"ldw.kernel.load" count and time each library it builds and loads.
 Nothing is compiled or loaded when a module is imported.
 """
 
@@ -19,6 +20,8 @@ import subprocess
 import threading
 import time
 from typing import Dict, Iterable
+
+from ldweaver_tpu_torch.utils.profiling import span
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
@@ -106,8 +109,10 @@ def load(name: str) -> ctypes.CDLL:
         lib = _libs.get(name)
         if lib is None:
             if _stale(name):
-                build([name])
-            lib = ctypes.CDLL(library_path(name))
+                with span("ldw.kernel.build"):
+                    build([name])
+            with span("ldw.kernel.load"):
+                lib = ctypes.CDLL(library_path(name))
             lib.ldw_cuda_error_string.restype = ctypes.c_char_p
             lib.ldw_cuda_error_string.argtypes = [ctypes.c_int]
             _libs[name] = lib

@@ -45,6 +45,7 @@ import torch
 from ldweaver_tpu_torch.ops.fused_tile import CHUNK, chunk_max, fused_tile_stage1
 from ldweaver_tpu_torch.ops.rank_mi import N_TERMS, pair_codes, rank_mi_tile
 from ldweaver_tpu_torch.support import resolve_device
+from ldweaver_tpu_torch.utils.profiling import span
 
 
 # --------------------------------------------------------------------------
@@ -355,21 +356,25 @@ def _prepare_lane(ranked: RankedSnps, valid: np.ndarray, hdw: np.ndarray,
     nseq = ranked.rank_codes.shape[0]
     nb = ranked.rank_codes.shape[1] // block
     if not streaming:
-        dev = device_inputs(ranked, valid, hdw, neff, device)
-        return SweepLane(dev=dev, marg=torch.stack([
-            rank_marginals(dev.codes, i * block, block, dev.w32, 5)
-            for i in range(nb)
-        ]))
-    cache = SlabCache(ranked.rank_codes, block, max_slabs, device)
-    dev = device_inputs(ranked, valid, hdw, neff, device, codes=cache.pool)
+        with span("ldw.prepare.upload"):
+            dev = device_inputs(ranked, valid, hdw, neff, device)
+        with span("ldw.prepare.marginals"):
+            return SweepLane(dev=dev, marg=torch.stack([
+                rank_marginals(dev.codes, i * block, block, dev.w32, 5)
+                for i in range(nb)
+            ]))
+    with span("ldw.prepare.upload"):
+        cache = SlabCache(ranked.rank_codes, block, max_slabs, device)
+        dev = device_inputs(ranked, valid, hdw, neff, device, codes=cache.pool)
     # each block's marginals from a [nseq, block] copy of its slab: the
     # same values as from the resident tensor
-    tmp = torch.empty((nseq, block), dtype=torch.uint8, device=device)
-    margs = []
-    for i in range(nb):
-        cache.write_slab(i, tmp)
-        margs.append(rank_marginals(tmp, 0, block, dev.w32, 5))
-    return SweepLane(dev=dev, marg=torch.stack(margs), slab_cache=cache)
+    with span("ldw.prepare.marginals"):
+        tmp = torch.empty((nseq, block), dtype=torch.uint8, device=device)
+        margs = []
+        for i in range(nb):
+            cache.write_slab(i, tmp)
+            margs.append(rank_marginals(tmp, 0, block, dev.w32, 5))
+        return SweepLane(dev=dev, marg=torch.stack(margs), slab_cache=cache)
 
 
 def prepare_fast_sweep(
@@ -390,36 +395,38 @@ def prepare_fast_sweep(
     from ldweaver_tpu_torch.parallel.multihost import shard_layout
     from ldweaver_tpu_torch.parallel.slabs import auto_budget, plan_budget
 
-    devices, first_shard, n_shards = shard_layout(device, n_devices)
-    if hbm_budget_bytes is None:
-        hbm_budget_bytes = auto_budget(devices[0])
-    ranked = stratify(
-        snp_data.codes, snp_data.acgtn_table, snp_data.pos, snp_data.r, block
-    )
-    nb = ranked.rank_codes.shape[1] // block
-    valid = np.arange(ranked.rank_codes.shape[1]) < snp_data.nsnp
-
-    # bucket key = (Rf, Rt, both-blocks-pure), as fast_sweep.py:569-577
-    buckets: Dict[Tuple[int, int, bool], List[Tuple[int, int]]] = {}
-    for i in range(nb):
-        for j in range(i, nb):
-            key = (
-                int(ranked.block_rmax[i]),
-                int(ranked.block_rmax[j]),
-                bool(ranked.block_pure[i]) and bool(ranked.block_pure[j]),
+    with span("ldw.prepare"):
+        devices, first_shard, n_shards = shard_layout(device, n_devices)
+        if hbm_budget_bytes is None:
+            hbm_budget_bytes = auto_budget(devices[0])
+        with span("ldw.prepare.stratify"):
+            ranked = stratify(
+                snp_data.codes, snp_data.acgtn_table, snp_data.pos, snp_data.r, block
             )
-            buckets.setdefault(key, []).append((i, j))
+        nb = ranked.rank_codes.shape[1] // block
+        valid = np.arange(ranked.rank_codes.shape[1]) < snp_data.nsnp
 
-    neff = np.asarray(hdw, np.float64).sum()
-    streaming, max_slabs, panel = plan_budget(snp_data.nseq, block, nb,
-                                              hbm_budget_bytes)
-    lanes = [_prepare_lane(ranked, valid, hdw, neff, d, max_slabs, streaming)
-             for d in devices]
-    return FastSweepState(
-        ranked=ranked, buckets=buckets, lanes=lanes, block=block,
-        g=snp_data.g, streaming=streaming, panel=panel,
-        first_shard=first_shard, n_shards=n_shards,
-    )
+        # bucket key = (Rf, Rt, both-blocks-pure), as fast_sweep.py:569-577
+        buckets: Dict[Tuple[int, int, bool], List[Tuple[int, int]]] = {}
+        for i in range(nb):
+            for j in range(i, nb):
+                key = (
+                    int(ranked.block_rmax[i]),
+                    int(ranked.block_rmax[j]),
+                    bool(ranked.block_pure[i]) and bool(ranked.block_pure[j]),
+                )
+                buckets.setdefault(key, []).append((i, j))
+
+        neff = np.asarray(hdw, np.float64).sum()
+        streaming, max_slabs, panel = plan_budget(snp_data.nseq, block, nb,
+                                                  hbm_budget_bytes)
+        lanes = [_prepare_lane(ranked, valid, hdw, neff, d, max_slabs, streaming)
+                 for d in devices]
+        return FastSweepState(
+            ranked=ranked, buckets=buckets, lanes=lanes, block=block,
+            g=snp_data.g, streaming=streaming, panel=panel,
+            first_shard=first_shard, n_shards=n_shards,
+        )
 
 
 def uses_fused_tile(key: Tuple[int, int, bool], block: int) -> bool:
@@ -463,6 +470,8 @@ def _tile_candidates(state: FastSweepState, bi: int, bj: int,
 # tiles whose top-k a lane of `fast_lr_topk` folds into its running top-k
 # at a time
 MERGE_CHUNK = 32
+# the span of one tile's launches, by `uses_fused_tile`
+TILE_SPANS = ("ldw.lr.tile.k1", "ldw.lr.tile.k2")
 
 
 def fast_lr_topk(
@@ -497,86 +506,99 @@ def fast_lr_topk(
     bucket order when resident, fast_sweep.py:660-662; the panel order
     when streaming) and the candidate's place in its tile's top-k: the
     order in which the JAX sweep's carries break ties, so the top-k does
-    not depend on the shards."""
+    not depend on the shards.
+
+    The call is the span "ldw.lr_topk" (utils/profiling.py); inside it
+    the spans "ldw.lr.plan", "ldw.lr.tile.k1" or "ldw.lr.tile.k2" for
+    each tile's launches, "ldw.lr.flush" for each fold, "ldw.lr.pull" and
+    "ldw.lr.merge"."""
     from ldweaver_tpu_torch.parallel import multihost
     from ldweaver_tpu_torch.parallel.slabs import panel_pair_order
 
-    terms = precision_terms
-    if not 1 <= terms <= N_TERMS:  # raises below one; past three: three
-        terms = len(split_terms(hdw if state is None else state.dev.w32.cpu(),
-                                terms))
-    if state is None:
-        state = prepare_fast_sweep(
-            snp_data, hdw, block, n_devices, hbm_budget_bytes, device
-        )
-    sr_dist = int(sr_dist)
-    ranked, B, panel = state.ranked, state.block, state.panel
-    nb = ranked.rank_codes.shape[1] // B
-    L = len(state.lanes)
-    k_each = min(topk, B * B)
-    if state.streaming:
-        order = list(panel_pair_order(nb, panel))
-    else:
-        order = [t for _, plist in sorted(state.buckets.items(),
-                                          key=lambda kv: -len(kv[1]))
-                 for t in plist]
-    ordinal = {t: i for i, t in enumerate(order)}
-    canonical = list(panel_pair_order(nb, nb))
-    ranges = multihost.shard_ranges(len(canonical), state.n_shards)
-    lane_tiles = [sorted(canonical[slice(*ranges[state.first_shard + l])],
-                         key=ordinal.__getitem__) for l in range(L)]
-    best = []
-    for lane in state.lanes:
-        d = lane.dev.codes.device
-        best.append([torch.full((topk,), float("-inf"), device=d),
-                     torch.zeros((topk,), dtype=torch.int64, device=d),
-                     torch.zeros((topk,), dtype=torch.int32, device=d)])
-    pend: List[list] = [[] for _ in range(L)]
+    with span("ldw.lr_topk"):
+        terms = precision_terms
+        if not 1 <= terms <= N_TERMS:  # raises below one; past three: three
+            terms = len(split_terms(hdw if state is None else state.dev.w32.cpu(),
+                                    terms))
+        if state is None:
+            state = prepare_fast_sweep(
+                snp_data, hdw, block, n_devices, hbm_budget_bytes, device
+            )
+        sr_dist = int(sr_dist)
+        ranked, B, panel = state.ranked, state.block, state.panel
+        nb = ranked.rank_codes.shape[1] // B
+        L = len(state.lanes)
+        k_each = min(topk, B * B)
+        with span("ldw.lr.plan"):
+            if state.streaming:
+                order = list(panel_pair_order(nb, panel))
+            else:
+                order = [t for _, plist in sorted(state.buckets.items(),
+                                                  key=lambda kv: -len(kv[1]))
+                         for t in plist]
+            ordinal = {t: i for i, t in enumerate(order)}
+            canonical = list(panel_pair_order(nb, nb))
+            ranges = multihost.shard_ranges(len(canonical), state.n_shards)
+            lane_tiles = [sorted(canonical[slice(*ranges[state.first_shard + l])],
+                                 key=ordinal.__getitem__) for l in range(L)]
+            best = []
+            for lane in state.lanes:
+                d = lane.dev.codes.device
+                best.append([torch.full((topk,), float("-inf"), device=d),
+                             torch.zeros((topk,), dtype=torch.int64, device=d),
+                             torch.zeros((topk,), dtype=torch.int32, device=d)])
+        pend: List[list] = [[] for _ in range(L)]
 
-    def flush(l: int) -> None:
-        if not pend[l]:
-            return
-        cat = [torch.cat([best[l][k]] + [p[k] for p in pend[l]]) for k in range(3)]
-        v, sel = top_k(cat[0], topk)
-        best[l] = [v, cat[1][sel], cat[2][sel]]
-        pend[l].clear()
+        def flush(l: int) -> None:
+            if not pend[l]:
+                return
+            with span("ldw.lr.flush"):
+                cat = [torch.cat([best[l][k]] + [p[k] for p in pend[l]])
+                       for k in range(3)]
+                v, sel = top_k(cat[0], topk)
+                best[l] = [v, cat[1][sel], cat[2][sel]]
+                pend[l].clear()
 
-    cur_panel = [-1] * L
-    for k in range(max(map(len, lane_tiles))):
+        cur_panel = [-1] * L
+        for k in range(max(map(len, lane_tiles))):
+            for l in range(L):
+                if k >= len(lane_tiles[l]):
+                    continue
+                bi, bj = lane_tiles[l][k]
+                cache = state.lanes[l].slab_cache
+                cols = None
+                if cache is not None:
+                    if bi // panel != cur_panel[l]:
+                        cur_panel[l] = bi // panel
+                        cache.unpin()
+                        cache.pin(range(cur_panel[l] * panel,
+                                        min((cur_panel[l] + 1) * panel, nb)))
+                    cols = (cache.get(bi), cache.get(bj))
+                key = (int(ranked.block_rmax[bi]), int(ranked.block_rmax[bj]),
+                       bool(ranked.block_pure[bi]) and bool(ranked.block_pure[bj]))
+                with span(TILE_SPANS[uses_fused_tile(key, B)]):
+                    vals, idx = _tile_candidates(state, bi, bj, key, sr_dist,
+                                                 k_each, cols, lane=l, terms=terms)
+                    tie = (torch.arange(vals.numel(), device=vals.device)
+                           + ordinal[bi, bj] * k_each)
+                    pend[l].append([vals, tie, idx.to(torch.int32)])
+                if len(pend[l]) >= MERGE_CHUNK:
+                    flush(l)
         for l in range(L):
-            if k >= len(lane_tiles[l]):
-                continue
-            bi, bj = lane_tiles[l][k]
-            cache = state.lanes[l].slab_cache
-            cols = None
-            if cache is not None:
-                if bi // panel != cur_panel[l]:
-                    cur_panel[l] = bi // panel
-                    cache.unpin()
-                    cache.pin(range(cur_panel[l] * panel,
-                                    min((cur_panel[l] + 1) * panel, nb)))
-                cols = (cache.get(bi), cache.get(bj))
-            key = (int(ranked.block_rmax[bi]), int(ranked.block_rmax[bj]),
-                   bool(ranked.block_pure[bi]) and bool(ranked.block_pure[bj]))
-            vals, idx = _tile_candidates(state, bi, bj, key, sr_dist, k_each,
-                                         cols, lane=l, terms=terms)
-            tie = (torch.arange(vals.numel(), device=vals.device)
-                   + ordinal[bi, bj] * k_each)
-            pend[l].append([vals, tie, idx.to(torch.int32)])
-            if len(pend[l]) >= MERGE_CHUNK:
-                flush(l)
-    for l in range(L):
-        flush(l)
-        if state.lanes[l].slab_cache is not None:
-            state.lanes[l].slab_cache.unpin()
-    local = [tuple(t.cpu().numpy() for t in b) for b in best]
-    parts = [p for r in multihost.allgather_object(local) for p in r]
-    v, tie, x = (np.concatenate([p[k] for p in parts]) for k in range(3))
-    o = np.lexsort((tie, -v.astype(np.float64)))[:topk]
-    v, tie, x = v[o], tie[o], x[o].astype(np.int64)
-    keep = np.isfinite(v)
-    v, tie, x = v[keep], tie[keep], x[keep]
-    tiles = np.asarray(order, np.int64).reshape(-1, 2)[tie // k_each]
-    pos2 = ranked.pos[tiles[:, 0] * B + x // B]
-    pos1 = ranked.pos[tiles[:, 1] * B + x % B]
-    return pos1, pos2, v
+            flush(l)
+            if state.lanes[l].slab_cache is not None:
+                state.lanes[l].slab_cache.unpin()
+        # waits for each lane's queue to drain
+        with span("ldw.lr.pull"):
+            local = [tuple(t.cpu().numpy() for t in b) for b in best]
+        with span("ldw.lr.merge"):
+            parts = [p for r in multihost.allgather_object(local) for p in r]
+            v, tie, x = (np.concatenate([p[k] for p in parts]) for k in range(3))
+            o = np.lexsort((tie, -v.astype(np.float64)))[:topk]
+            v, tie, x = v[o], tie[o], x[o].astype(np.int64)
+            keep = np.isfinite(v)
+            v, tie, x = v[keep], tie[keep], x[keep]
+            tiles = np.asarray(order, np.int64).reshape(-1, 2)[tie // k_each]
+            pos2 = ranked.pos[tiles[:, 0] * B + x // B]
+            pos1 = ranked.pos[tiles[:, 1] * B + x % B]
+        return pos1, pos2, v

@@ -30,6 +30,8 @@ from typing import Iterator, Optional, Set, Tuple
 import numpy as np
 import torch
 
+from ldweaver_tpu_torch.utils.profiling import span
+
 
 def pack_nibbles(host: np.ndarray, pad: int = 0) -> np.ndarray:
     """Host-side nibble pack: [B, n] u8 (values <= 0xF) -> [B, ceil(n/2)]
@@ -99,7 +101,8 @@ class SlabCache:
             self._free.append(self._slots.pop(victim))
         slot = self._free.pop()
         off = slot * self.block
-        self.write_slab(bi, self.pool[:, off : off + self.block])
+        with span("ldw.slab.upload"):
+            self.write_slab(bi, self.pool[:, off : off + self.block])
         self.uploads += 1
         self._slots[bi] = slot
         return off

@@ -1,6 +1,6 @@
 """The port's profiler hook (`utils/profiling.py`): with LDW_PROFILE set,
 `maybe_trace` writes a torch.profiler Chrome trace of the region under
-$LDW_PROFILE/<region>, in which the ranges of `annotate` appear; without
+$LDW_PROFILE/<region>, in which the program's `span` ranges appear; without
 the variable nothing is written.  Driven through the fast backend's BLK5
 sweep, which the pipeline wraps in maybe_trace("blk5_sweep")."""
 
@@ -25,7 +25,7 @@ def test_trace_written_with_ldw_profile(tmp_path, monkeypatch):
     sweep(tmp_path, "run")
     trace = base / "blk5_sweep" / "trace.json"
     names = {e.get("name") for e in json.loads(trace.read_text())["traceEvents"]}
-    assert {"fast_dispatch", "fast_finish"} <= names
+    assert {"ldw.blk5.dispatch", "ldw.blk5.finish"} <= names
 
 
 def test_nothing_written_without_ldw_profile(tmp_path, monkeypatch):
