@@ -476,6 +476,134 @@ def kernel_phase(S, buckets, seed, terms=3):
     return rows
 
 
+def stage1_phase(S, buckets, seed, terms=3):
+    """K1's LR stage-1 form (`rank_mi.rank_mi_stage1`) at B x S for each
+    bucket over the first `terms` bf16 weight terms, on a cross-block tile
+    and, where Rf == Rt, a diagonal one (the triangle), with pad sites at
+    the ends of each block: bit for bit against the store form on the card
+    after `tile_masks`, `torch.where` and `chunk_max` (what the sweep ran
+    before it), and against its plain version in float64 (the same -inf
+    chunks, values within ATOL_PLAIN, another column only where the
+    kernel's values at both columns lie within ATOL_PLAIN of the exact
+    tile); CUDA-event times of the cross-block tile: the stage-1
+    form, the store form with those torch ops (`stored_ms`), the plain
+    version in float32 and one bf16 torch.matmul of the stacked count
+    planes, [(Rf-1) B, tS] x [tS, (Rt-1) B]."""
+    import torch
+
+    from ldweaver_tpu_torch.ops import rank_mi
+    from ldweaver_tpu_torch.parallel.fast_sweep import (
+        rank_marginals,
+        tile_masks,
+        wparts,
+    )
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    f64 = torch.float64
+    rows = {}
+    for Rf, Rt, pure in buckets:
+        codes_np, rf_np, rt_np, w = bucket_inputs(rng, Rf, Rt, pure, S)
+        codes = torch.from_numpy(codes_np).to(dev)
+        w32, parts = wparts(w)
+        w32, parts = w32.to(dev), parts[:terms].to(dev).contiguous()
+        pos = torch.from_numpy(np.concatenate([
+            np.sort(rng.choice(np.arange(1, G + 1), B, replace=False))
+            for _ in range(2)]).astype(np.int32)).to(dev)
+        valid = torch.ones(2 * B, dtype=torch.bool, device=dev)
+        valid[B - 5 : B] = False
+        valid[2 * B - 3 :] = False
+        r_all = torch.from_numpy(np.concatenate([rf_np, rt_np]).astype(np.float32)).to(dev)
+        neff = float(np.float32(w.sum()))
+        row = None
+        for same in ((False, True) if Rf == Rt else (False,)):
+            tag = (f"K1 stage-1 {Rf},{Rt},{'pure' if pure else 'general'}"
+                   f" {'same' if same else 'cross'}-block S={S} t={terms}")
+            ts = 0 if same else B
+            tile = (codes, 0, ts, B, B, parts, rank_marginals(codes, 0, B, w32, Rf),
+                    rank_marginals(codes, ts, B, w32, Rt), r_all[:B],
+                    r_all[ts : ts + B], neff, Rf, Rt, pure)
+            lr = (pos[:B], pos[ts : ts + B], valid[:B], valid[ts : ts + B], same)
+            kw = dict(g=G, sr_dist=SR_DIST)
+
+            def stored():
+                _, lr_ok = tile_masks(*lr, G, SR_DIST)
+                return rank_mi.chunk_max(torch.where(
+                    lr_ok, rank_mi.rank_mi_tile(*tile), float("-inf")))
+
+            kv, kc = rank_mi.rank_mi_stage1(*tile, *lr, **kw)
+            sv, sc = stored()
+            ev, ec = rank_mi.rank_mi_stage1_reference(*tile, *lr, **kw, dtype=f64)
+            torch.cuda.synchronize()
+            bitwise = (torch.equal(kv.view(torch.int32), sv.view(torch.int32))
+                       and torch.equal(kc, sc))
+            if not bool((torch.isneginf(kv) == torch.isneginf(ev)).all()):
+                raise RuntimeError(f"{tag}: -inf chunks differ from the plain version")
+            fin = torch.isfinite(ev)
+            if torch.isnan(kv).any() or not bool(fin.any()) or bool(fin.all()):
+                raise RuntimeError(f"{tag}: expected live and masked chunks")
+            err = float((kv[fin].double() - ev[fin]).abs().max())
+            mism = kc != ec
+            n_mism = int(mism.sum())
+            tie_gap = tie_err = 0.0
+            if n_mism:
+                # another column than the exact argmax: the kernel's values
+                # at both columns (the store form's, bit for bit) must lie
+                # within ATOL_PLAIN of the exact tile, so their exact gap
+                # within twice that; K1's error grows with S (PERF.md §7)
+                exact = rank_mi.rank_mi_tile_reference(*tile, dtype=f64)
+                mi = rank_mi.rank_mi_tile(*tile).double()
+                rows_i = torch.nonzero(mism)[:, 0]
+                k_col, e_col = kc[mism].long(), ec[mism].long()
+                tie_gap = float((exact[rows_i, e_col] - exact[rows_i, k_col]).abs().max())
+                tie_err = max(float((mi[rows_i, c] - exact[rows_i, c]).abs().max())
+                              for c in (k_col, e_col))
+                del exact, mi
+            log(f"{tag}: bit for bit the store form's chunk max {bitwise};"
+                f" max|kernel-plain64| {err:.2e}; {n_mism} of {kc.numel()}"
+                f" chunks pick another column than the f64 plain version (max"
+                f" gap {tie_gap:.2e} in the f64 tile, kernel values there within"
+                f" {tie_err:.2e} of it), live chunks {int(fin.sum())}")
+            if not bitwise:
+                raise RuntimeError(f"{tag}: differs from the store form's chunk max")
+            if err > ATOL_PLAIN:
+                raise RuntimeError(f"{tag}: kernel vs plain (f64) {err:.3e} > {ATOL_PLAIN}")
+            if tie_err > ATOL_PLAIN or tie_gap > 2 * ATOL_PLAIN:
+                raise RuntimeError(f"{tag}: a divergent column is no tie within the"
+                                   f" kernel's bound (gap {tie_gap:.3e}, values"
+                                   f" {tie_err:.3e} off)")
+            if same:
+                row["max_abs_err"] = max(row["max_abs_err"], err)
+                continue
+            ms = cuda_time_ms(lambda: rank_mi.rank_mi_stage1(*tile, *lr, **kw), reps=20)
+            stored_ms = cuda_time_ms(stored, reps=20)
+            plain_ms = cuda_time_ms(
+                lambda: rank_mi.rank_mi_stage1_reference(*tile, *lr, **kw), reps=3, warm=1)
+            nc = (Rf - 1) * (Rt - 1)
+            lhs = torch.ones(((Rf - 1) * B, terms * S), dtype=torch.bfloat16, device=dev)
+            rhs = torch.ones(((Rt - 1) * B, terms * S), dtype=torch.bfloat16, device=dev)
+            library_ms = cuda_time_ms(lambda: torch.matmul(lhs, rhs.T), reps=20)
+            del lhs, rhs
+            # the store form's inputs, positions and validity; out: one
+            # (f32, i32) pair a row and 128-column chunk, no tile
+            nbytes = (S * 2 * B + 2 * terms * S + 4 * (Rf + Rt) * B + 8 * B
+                      + 8 * B + 2 * B + 8 * B * (B // rank_mi.CHUNK))
+            bound_ms, bound_by = bound(nbytes, 2.0 * B * B * terms * S * nc)
+            row = dict(Rf=Rf, Rt=Rt, pure=pure, S=S, n_terms=terms, max_abs_err=err,
+                       ms=ms, stored_ms=stored_ms, plain_ms=plain_ms,
+                       library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                       bound_frac=bound_ms / ms)
+            log(f"K1 stage-1 timing {Rf},{Rt},{'pure' if pure else 'general'} S={S}"
+                f" t={terms}: kernel {ms:.4f} ms, store form + torch ops"
+                f" {stored_ms:.4f} ms, plain {plain_ms:.3f} ms, stacked-plane"
+                f" matmul {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}),"
+                f" {bound_ms / ms:.3f} of the bound")
+        rows[(Rf, Rt, pure)] = row
+        del codes, tile, lr, kv, kc, sv, sc, ev, ec
+        torch.cuda.empty_cache()
+    return rows
+
+
 def fused_inputs(rng, same, nseq=K2_S):
     """Biallelic rank codes [nseq, B] (same block) or [nseq, 2B] (rows' SNPs,
     then the columns'), rank 0 the major allele, sorted positions per
@@ -1338,6 +1466,26 @@ def cli_phase():
 PORT_KERNEL = re.compile(r"\b(rank_mi|fused_tile|compat_mi)_kernel\b")
 
 
+def sweep_counters():
+    """The LR sweep's launch counters: K1's store form (`rank_mi_tile`,
+    tiles at most 1024 columns wide), K1's stage-1 form (`rank_mi_stage1`,
+    wider tiles) and K2."""
+    from ldweaver_tpu_torch.ops import fused_tile, rank_mi
+
+    return rank_mi.K1, rank_mi.K1_STAGE1, fused_tile.K2
+
+
+def reset_sweep_launches():
+    for c in sweep_counters():
+        c.reset()
+
+
+def sweep_launches():
+    """(count, {bucket: count}) of each of `sweep_counters` since their
+    last reset."""
+    return tuple((c.launches, dict(c.by_bucket)) for c in sweep_counters())
+
+
 def kernel_split(events):
     """Device time of `events`, (name, start_us, end_us) of the card's
     own activities (kernels, copies, fills): busy, the union of their
@@ -1415,7 +1563,6 @@ def canon_topk(a, b, v):
 def lr_phase():
     import torch
 
-    from ldweaver_tpu_torch.ops import fused_tile, rank_mi
     from ldweaver_tpu_torch.parallel.fast_sweep import (
         fast_lr_topk,
         prepare_fast_sweep,
@@ -1455,31 +1602,32 @@ def lr_phase():
     warm_s = time.time() - t0
     walls = []
     for _ in range(5):
-        rank_mi.K1.reset()
-        fused_tile.K2.reset()
+        reset_sweep_launches()
         t0 = time.time()
         pos1, pos2, mi = fast_lr_topk(sr_dist=SR_DIST, topk=1024, state=state)
         walls.append(time.time() - t0)
-        k1, k1_by_bucket, k2 = (rank_mi.K1.launches, dict(rank_mi.K1.by_bucket),
-                                fused_tile.K2.launches)
+        (k1, k1_by_bucket), (s1, s1_by_bucket), (k2, _) = sweep_launches()
         if not (mi.size == 1024 and np.isfinite(mi).all()
                 and np.all(np.diff(mi) <= 0) and (pos1 != pos2).all()):
             raise RuntimeError("LR sweep: malformed top-k")
-        if k2 != n22 or k1 + k2 != sum(tiles.values()):
+        # block 4096 > 1024: every K1 tile takes the stage-1 form
+        if k2 != n22 or k1 or s1 + k2 != sum(tiles.values()):
             raise RuntimeError(f"LR sweep: K2 launched {k2} times for {n22}"
-                               f" (2,2,pure) tiles, K1 {k1} times")
+                               f" (2,2,pure) tiles, K1's stage-1 form {s1} times,"
+                               f" its store form {k1}")
     median = float(np.median(walls))
     np.savez(os.path.join(WORK, "lr_resident.npz"), pos1=pos1, pos2=pos2, mi=mi)
     pairs = sd.nsnp * (sd.nsnp - 1) // 2
     busy = device_time_split(
         lambda: fast_lr_topk(sr_dist=SR_DIST, topk=1024, state=state))
     out = dict(warm_s=warm_s, walls_s=walls, median_s=median,
-               pairs_per_s=pairs / median, k1_launches=k1, k2_launches=k2,
+               pairs_per_s=pairs / median, k1_launches=k1,
+               k1_stage1_launches=s1, k2_launches=k2,
                top_mi=float(mi[0]), kth_mi=float(mi[-1]), **busy)
     log(f"LR sweep (131,072 SNPs x 1024 genomes, block 4096, top-k 1024):"
         f" warm {warm_s:.2f} s, timed {[round(x, 3) for x in walls]} s, median"
         f" {median:.3f} s = {pairs / median:.4g} pairs/s; per call K2 {k2}"
-        f" launches, K1 {k1} {k1_by_bucket}; device busy"
+        f" launches, K1 stage-1 {s1} {s1_by_bucket}, K1 store {k1}; device busy"
         f" {busy['device_busy_s']:.3f} s = {100 * busy['device_busy_s'] / median:.0f}%"
         f" of the median wall (summed {busy['device_summed_s']:.3f} s), share of"
         f" the summed time {busy['device_share']}")
@@ -1494,29 +1642,31 @@ def lr_phase():
     prep_s = time.time() - t0
     if not state.streaming:
         raise RuntimeError("LR sweep: the 64 MiB budget did not stream")
-    rank_mi.K1.reset()
-    fused_tile.K2.reset()
+    reset_sweep_launches()
     t0 = time.time()
-    s1, s2, smi = fast_lr_topk(sr_dist=SR_DIST, topk=1024, state=state)
+    p1s, p2s, smi = fast_lr_topk(sr_dist=SR_DIST, topk=1024, state=state)
     stream_s = time.time() - t0
-    k1s, k2s = rank_mi.K1.launches, fused_tile.K2.launches
-    k1s_by_bucket = dict(rank_mi.K1.by_bucket)
+    (k1s, k1s_by_bucket), (s1s, s1s_by_bucket), (k2s, _) = sweep_launches()
 
-    same = canon_topk(pos1, pos2, mi) == canon_topk(s1, s2, smi)
+    same = canon_topk(pos1, pos2, mi) == canon_topk(p1s, p2s, smi)
     cache = state.slab_cache
     out.update(stream_prep_s=prep_s, stream_s=stream_s, stream_k1_launches=k1s,
-               stream_k2_launches=k2s, stream_uploads=cache.uploads,
+               stream_k1_stage1_launches=s1s, stream_k2_launches=k2s,
+               stream_uploads=cache.uploads,
                stream_hits=cache.hits, stream_equal=same)
     log(f"LR sweep streamed ({LR_STREAM_BUDGET} bytes: {cache.max_slabs} slabs,"
         f" panels of {state.panel}): prepared in {prep_s:.1f} s, one call"
         f" {stream_s:.3f} s, {cache.uploads} slab uploads, {cache.hits} hits;"
-        f" K2 {k2s} launches, K1 {k1s} {k1s_by_bucket}; top-1024 equal to the"
-        f" resident call's: {same}")
-    if not same or k2s != n22 or k1s + k2s != sum(tiles.values()):
+        f" K2 {k2s} launches, K1 stage-1 {s1s} {s1s_by_bucket}, K1 store {k1s};"
+        f" top-1024 equal to the resident call's: {same}")
+    if not same:
         raise RuntimeError("LR sweep: the streamed top-k differs from the resident one")
+    if k2s != n22 or k1s or s1s + k2s != sum(tiles.values()):
+        raise RuntimeError(f"LR sweep streamed: K2 {k2s}, K1 stage-1 {s1s},"
+                           f" store {k1s} launches")
     del state
     torch.cuda.empty_cache()
-    return out, k1_by_bucket, k1s_by_bucket
+    return out, (k1_by_bucket, s1_by_bucket), (k1s_by_bucket, s1s_by_bucket)
 
 
 # --------------------------------------------------------------------------
@@ -1617,7 +1767,6 @@ def streaming_leg(nsnp, nseq, block, device, topk=1024):
     time split of one more streamed call (`device_time_split`)."""
     import torch
 
-    from ldweaver_tpu_torch.ops import fused_tile, rank_mi
     from ldweaver_tpu_torch.parallel.fast_sweep import fast_lr_topk, prepare_fast_sweep
 
     sd, w = bench_snp_data(nsnp, nseq, seed=3)
@@ -1636,17 +1785,16 @@ def streaming_leg(nsnp, nseq, block, device, topk=1024):
     fast_lr_topk(state=state, sr_dist=SR_DIST, topk=topk)
     out["warm_s"] = time.time() - t0
     u0, h0 = cache.uploads, cache.hits
-    rank_mi.K1.reset()
-    fused_tile.K2.reset()
+    reset_sweep_launches()
     t0 = time.time()
     out["streamed"] = fast_lr_topk(state=state, sr_dist=SR_DIST, topk=topk)
     if device != "cpu":
         torch.cuda.synchronize()
+    (k1, k1_by_bucket), (s1, s1_by_bucket), (k2, _) = sweep_launches()
     out.update(wall_s=time.time() - t0, uploads=cache.uploads - u0,
-               hits=cache.hits - h0, k1_launches=rank_mi.K1.launches,
-               k1_by_bucket=dict(rank_mi.K1.by_bucket),
-               k2_launches=fused_tile.K2.launches,
-               tiles={k: len(v) for k, v in state.buckets.items()})
+               hits=cache.hits - h0, k1_launches=k1, k1_by_bucket=k1_by_bucket,
+               k1_stage1_launches=s1, k1_stage1_by_bucket=s1_by_bucket,
+               k2_launches=k2, tiles={k: len(v) for k, v in state.buckets.items()})
     if device != "cpu":  # where a streamed call's time goes, on the card
         out["split"] = device_time_split(
             lambda: fast_lr_topk(state=state, sr_dist=SR_DIST, topk=topk))
@@ -1659,15 +1807,15 @@ def streaming_leg(nsnp, nseq, block, device, topk=1024):
                resident_pool_bytes=state.dev.codes.numel(),
                resident_prep_s=time.time() - t0)
     fast_lr_topk(state=state, sr_dist=SR_DIST, topk=topk)
-    rank_mi.K1.reset()
-    fused_tile.K2.reset()
+    reset_sweep_launches()
     t0 = time.time()
     out["resident"] = fast_lr_topk(state=state, sr_dist=SR_DIST, topk=topk)
     if device != "cpu":
         torch.cuda.synchronize()
+    (_, k1_by_bucket), (_, s1_by_bucket), (k2, _) = sweep_launches()
     out.update(resident_wall_s=time.time() - t0,
-               resident_k1_by_bucket=dict(rank_mi.K1.by_bucket),
-               resident_k2_launches=fused_tile.K2.launches)
+               resident_k1_by_bucket=k1_by_bucket,
+               resident_k1_stage1_by_bucket=s1_by_bucket, resident_k2_launches=k2)
     return out
 
 
@@ -1695,7 +1843,8 @@ def streaming_leg_phase():
         f" {res['wall_s']:.3f} s (device busy {res['split']['device_busy_s']:.3f} s"
         f" in a profiled call), {res['uploads']} slab uploads (JAX record"
         f" {STREAM_UPLOADS}), {res['hits']} hits; K2 {res['k2_launches']}"
-        f" launches, K1 {res['k1_launches']} {res['k1_by_bucket']}; tiles"
+        f" launches, K1 stage-1 {res['k1_stage1_launches']}"
+        f" {res['k1_stage1_by_bucket']}, K1 store {res['k1_launches']}; tiles"
         f" {res['tiles']}; resident (pool {res['resident_pool_bytes']} bytes,"
         f" streaming {res['resident_streaming']}) call {res['resident_wall_s']:.3f} s;"
         f" top-1024 streamed vs resident: {one_side} pairs on one side only"
@@ -1704,16 +1853,20 @@ def streaming_leg_phase():
     ntiles = sum(res["tiles"].values())
     # the slab plan and the panel order are host logic: the counted call
     # uploads what the JAX package's did (tests/test_torch_recorded_runs.py)
-    if res["uploads"] != STREAM_UPLOADS or res["k1_launches"] + res["k2_launches"] != ntiles:
-        raise RuntimeError(f"streaming leg: {res['uploads']} uploads, K1"
-                           f" {res['k1_launches']} + K2 {res['k2_launches']}"
-                           f" launches for {ntiles} tiles")
+    # block 4096 > 1024: every K1 tile takes the stage-1 form
+    if (res["uploads"] != STREAM_UPLOADS or res["k1_launches"]
+            or res["k1_stage1_launches"] + res["k2_launches"] != ntiles):
+        raise RuntimeError(f"streaming leg: {res['uploads']} uploads, K1 stage-1"
+                           f" {res['k1_stage1_launches']} + K2 {res['k2_launches']}"
+                           f" launches for {ntiles} tiles, K1 store {res['k1_launches']}")
     if res["resident_streaming"] or res["resident_pool_bytes"] != nb * res["slab_bytes"]:
         raise RuntimeError("streaming leg: the resident run does not hold its"
                            f" {nb} slabs on the card")
-    # the kernels at the leg's depth: K1 at its launched buckets, K2
+    # the kernels at the leg's depth: K1's two forms at its buckets, K2
     k1_rows = kernel_phase(STREAM_SEQS, LR_BUCKETS, 20261020)
-    unmeasured = set(res["k1_by_bucket"]) - set(k1_rows)
+    s1_rows = stage1_phase(STREAM_SEQS, LR_BUCKETS, 20261024)
+    unmeasured = ((set(res["k1_by_bucket"]) - set(k1_rows))
+                  | (set(res["k1_stage1_by_bucket"]) - set(s1_rows)))
     if unmeasured:
         raise RuntimeError(f"streaming leg: K1 launched in buckets not measured at"
                            f" S={STREAM_SEQS}: {sorted(unmeasured)}")
@@ -1723,7 +1876,7 @@ def streaming_leg_phase():
                     device_busy_s=res["split"]["device_busy_s"],
                     budget_bytes=res["budget"], slab_bytes=res["slab_bytes"],
                     one_side_near_ties=one_side, identical=exact)
-    return k1_rows, k2_row, res, recorded
+    return k1_rows, s1_rows, k2_row, res, recorded
 
 
 # --------------------------------------------------------------------------
@@ -1821,7 +1974,7 @@ def multi_worker(job, rank, port):
     import torch
 
     import ldweaver_tpu_torch
-    from ldweaver_tpu_torch.ops import compat_mi, fused_tile, rank_mi
+    from ldweaver_tpu_torch.ops import compat_mi, rank_mi
     from ldweaver_tpu_torch.parallel.fast_sweep import fast_lr_topk, prepare_fast_sweep
     from ldweaver_tpu_torch.parallel.sweep import sharded_lr_topk
 
@@ -1868,13 +2021,12 @@ def multi_worker(job, rank, port):
         state = prepare_fast_sweep(sd, w, block=4096,
                                    hbm_budget_bytes=MULTI_DEVICE_BUDGET,
                                    device="cuda:0")
-        rank_mi.K1.reset()
-        fused_tile.K2.reset()
+        reset_sweep_launches()
         t0 = time.time()
         p1, p2, mi = fast_lr_topk(sr_dist=SR_DIST, topk=1024, state=state)
-        out["lr"] = dict(wall_s=time.time() - t0, k1=rank_mi.K1.launches,
-                         k2=fused_tile.K2.launches,
-                         k1_by_bucket={str(k): v for k, v in rank_mi.K1.by_bucket.items()})
+        (k1, _), (s1, s1_by_bucket), (k2, _) = sweep_launches()
+        out["lr"] = dict(wall_s=time.time() - t0, k1=k1, k1_stage1=s1, k2=k2,
+                         k1_stage1_by_bucket={str(k): v for k, v in s1_by_bucket.items()})
         np.savez(os.path.join(WORK, "multi", f"lr_r{rank}.npz"), pos1=p1, pos2=p2, mi=mi)
         del state
         torch.cuda.empty_cache()
@@ -1976,7 +2128,7 @@ def multi_big_phase(inputs):
     wall = launch_ranks("big")
     res = {"wall_s": wall}
     by_bucket, lr_by_bucket = {}, {}
-    k1_lr = k2_lr = k3 = 0
+    k1_lr = s1_lr = k2_lr = k3 = 0
     ref = np.load(os.path.join(WORK, "lr_resident.npz"))
     ref_sh = np.load(os.path.join(WORK, "sharded_single.npz"))
     for rank in range(2):
@@ -1988,9 +2140,10 @@ def multi_big_phase(inputs):
                 for n in ("sr_links.tsv", "lr_links.tsv")}
         for k, v in h["k1_by_bucket"].items():
             by_bucket[k] = by_bucket.get(k, 0) + v
-        for k, v in got["lr"]["k1_by_bucket"].items():
+        for k, v in got["lr"]["k1_stage1_by_bucket"].items():
             lr_by_bucket[k] = lr_by_bucket.get(k, 0) + v
         k1_lr += got["lr"]["k1"]
+        s1_lr += got["lr"]["k1_stage1"]
         k2_lr += got["lr"]["k2"]
         k3 += got["sharded"]["k3"]
         lr = np.load(os.path.join(WORK, "multi", f"lr_r{rank}.npz"))
@@ -2010,7 +2163,8 @@ def multi_big_phase(inputs):
             peak_bytes=spmd["peak_bytes"], peak_tiles_bytes=spmd["peak_tiles_bytes"],
             sr_pairs_on_rank=spmd["sr_pairs"], cand_count=spmd.get("cand_count"),
             tsv_byte_identical=same, lr_wall_s=got["lr"]["wall_s"],
-            lr_k1=got["lr"]["k1"], lr_k2=got["lr"]["k2"], lr_topk_equal=lr_equal,
+            lr_k1=got["lr"]["k1"], lr_k1_stage1=got["lr"]["k1_stage1"],
+            lr_k2=got["lr"]["k2"], lr_topk_equal=lr_equal,
             sharded_wall_s=got["sharded"]["wall_s"], sharded_k3=got["sharded"]["k3"],
             sharded_equal=sh_equal)
         log(f"multi headline rank {rank}: {json.dumps(res[f'r{rank}'])}")
@@ -2030,10 +2184,11 @@ def multi_big_phase(inputs):
         if not lr_equal or not sh_equal:
             raise RuntimeError(f"multi rank {rank}: the LR top-1024 ({lr_equal}) or the"
                                f" sharded result ({sh_equal}) differs from one process's")
-    log(f"multi lr: K1 {k1_lr} and K2 {k2_lr} launches over the two ranks;"
-        f" multi sharded: K3 {k3}")
-    if (k1_lr, k2_lr) != (150, 378):
-        raise RuntimeError(f"multi lr: K1 {k1_lr}, K2 {k2_lr} launches (150, 378 expected)")
+    log(f"multi lr: K1 stage-1 {s1_lr}, K1 store {k1_lr} and K2 {k2_lr} launches"
+        f" over the two ranks; multi sharded: K3 {k3}")
+    if (s1_lr, k1_lr, k2_lr) != (150, 0, 378):
+        raise RuntimeError(f"multi lr: K1 stage-1 {s1_lr}, K1 store {k1_lr}, K2"
+                           f" {k2_lr} launches (150, 0, 378 expected)")
     n_sh = SHARDED_SNPS // SHARDED_B
     if k3 != n_sh * (n_sh + 1) // 2:
         raise RuntimeError(f"multi sharded: K3 launched {k3} times")
@@ -2345,7 +2500,7 @@ def terms_phase():
     median wall of 5 calls, pairs/s, K1 and K2 launches, device time."""
     import torch
 
-    from ldweaver_tpu_torch.ops import compat_mi, fused_tile, rank_mi
+    from ldweaver_tpu_torch.ops import compat_mi, rank_mi
     from ldweaver_tpu_torch.parallel.fast_sweep import (
         fast_lr_topk,
         mi_tile_rank,
@@ -2356,6 +2511,7 @@ def terms_phase():
     for t in TERMS:
         rows[t] = dict(
             k1=kernel_phase(K2_S, TERMS_K1_BUCKETS, 20261019, terms=t),
+            k1s1=stage1_phase(K2_S, LR_BUCKETS, 20261025, terms=t),
             k2=fused_phase(terms=t),
             k3=compat_kernel_phase(TERMS_K3_SHAPES, terms=t),
         )
@@ -2407,37 +2563,38 @@ def terms_phase():
         fast_lr_topk(sr_dist=SR_DIST, topk=1024, precision_terms=t, state=state)
         walls = []
         for _ in range(5):
-            rank_mi.K1.reset()
-            fused_tile.K2.reset()
+            reset_sweep_launches()
             t0 = time.time()
             pos1, pos2, mi = fast_lr_topk(sr_dist=SR_DIST, topk=1024,
                                           precision_terms=t, state=state)
             walls.append(time.time() - t0)
-            k1, k1_by_bucket, k2 = (rank_mi.K1.launches, dict(rank_mi.K1.by_bucket),
-                                    fused_tile.K2.launches)
+            (k1, k1_by_bucket), (s1, s1_by_bucket), (k2, _) = sweep_launches()
             if not (mi.size == 1024 and np.isfinite(mi).all()
                     and np.all(np.diff(mi) <= 0) and (pos1 != pos2).all()):
                 raise RuntimeError(f"LR sweep t={t}: malformed top-k")
-            if k2 != n22 or k1 + k2 != sum(tiles.values()):
+            if k2 != n22 or k1 or s1 + k2 != sum(tiles.values()):
                 raise RuntimeError(f"LR sweep t={t}: K2 {k2} launches for {n22}"
-                                   f" (2,2,pure) tiles, K1 {k1}")
+                                   f" (2,2,pure) tiles, K1 stage-1 {s1}, store {k1}")
         median = float(np.median(walls))
         busy = device_time_split(lambda: fast_lr_topk(
             sr_dist=SR_DIST, topk=1024, precision_terms=t, state=state))
         sweep[t] = dict(walls_s=walls, median_s=median, pairs_per_s=pairs / median,
-                        k1_launches=k1, k1_by_bucket=k1_by_bucket, k2_launches=k2,
+                        k1_launches=k1, k1_by_bucket=k1_by_bucket,
+                        k1_stage1_launches=s1, k1_stage1_by_bucket=s1_by_bucket,
+                        k2_launches=k2,
                         top_mi=float(mi[0]), kth_mi=float(mi[-1]), **busy)
         log(f"LR sweep t={t} (131,072 SNPs x 1024 genomes, block 4096, top-k 1024):"
             f" timed {[round(x, 3) for x in walls]} s, median {median:.3f} s ="
-            f" {pairs / median:.4g} pairs/s; K2 {k2} launches, K1 {k1}"
-            f" {k1_by_bucket}; device busy {busy['device_busy_s']:.3f} s ="
+            f" {pairs / median:.4g} pairs/s; K2 {k2} launches, K1 stage-1 {s1}"
+            f" {s1_by_bucket}, K1 store {k1}; device busy {busy['device_busy_s']:.3f} s ="
             f" {100 * busy['device_busy_s'] / median:.0f}% of the median wall"
             f" (summed {busy['device_summed_s']:.3f} s), share of the summed"
             f" time {busy['device_share']}")
     del state
     torch.cuda.empty_cache()
     log("terms sweep: " + json.dumps({
-        t: {k: v for k, v in r.items() if k != "k1_by_bucket"} for t, r in sweep.items()}))
+        t: {k: v for k, v in r.items() if not k.endswith("by_bucket")}
+        for t, r in sweep.items()}))
     return rows, sweep
 
 
@@ -2471,6 +2628,18 @@ def k1_line(row, launches, **extra):
         replaces=("ldweaver_tpu/parallel/fast_sweep.py:223" if row["pure"]
                   else "ldweaver_tpu/ops/pallas_rank_mi.py:23"),
         launches=launches, **{k: row[k] for k in LINE_KEYS}, **extra)
+
+
+def s1_line(row, launches, **extra):
+    """The entry of K1's LR stage-1 form (`rank_mi_stage1`), with its
+    store-form-and-torch-ops time beside it."""
+    t = "" if row["n_terms"] == 3 else f",t={row['n_terms']}"
+    return dict(
+        name=(f"rank_mi_stage1[Rf={row['Rf']},Rt={row['Rt']},"
+              f"{'pure' if row['pure'] else 'general'},S={row['S']}{t}]"),
+        route="cuda", source="ldweaver_tpu_torch/csrc/rank_mi.cu",
+        replaces="ldweaver_tpu/parallel/fast_sweep.py:280", launches=launches,
+        **{k: row[k] for k in LINE_KEYS}, stored_ms=row["stored_ms"], **extra)
 
 
 def k2_line(row, launches, **extra):
@@ -2507,6 +2676,9 @@ def main():
     timed("build", build)
     k1_slice = timed("kernels S=616", kernel_phase, S, BUCKETS, 20261016)
     k1_lr = timed("kernels S=1024", kernel_phase, K2_S, LR_BUCKETS, 20261018)
+    # K1's stage-1 form at the benchmark cell's S = 616 and the LR sweep's
+    s1_rows = {S: timed("stage-1 S=616", stage1_phase, S, LR_BUCKETS, 20261021),
+               K2_S: timed("stage-1 S=1024", stage1_phase, K2_S, LR_BUCKETS, 20261022)}
     k2_row = timed("fused", fused_phase)
     k3_rows = timed("compat kernel", compat_kernel_phase)
     for backend in ("spmd", "pallas", "jax", "fast"):
@@ -2517,10 +2689,10 @@ def main():
     headline_by_bucket, headline_inputs, headline_sr_pairs, e2e_rec = timed(
         "headline", headline_phase)
     fast_by_bucket = timed("headline fast", headline_fast_phase, headline_inputs)
-    lr, lr_k1, lr_stream_k1 = timed("lr", lr_phase)
+    lr, (lr_k1, lr_s1), (lr_stream_k1, lr_stream_s1) = timed("lr", lr_phase)
     pipe_by_bucket, pipe_rec = timed("pipeline leg", pipeline_leg_phase)
-    k1_stream, k2_stream, stream, stream_rec = timed("streaming leg",
-                                                     streaming_leg_phase)
+    k1_stream, s1_stream, k2_stream, stream, stream_rec = timed(
+        "streaming leg", streaming_leg_phase)
     k3_by_shape = timed("compat", compat_phase)
     k3_sharded = timed("sharded", sharded_phase)
     timed("one card", one_card_phase)
@@ -2528,7 +2700,7 @@ def main():
     timed("flat footprint", flat_footprint_phase)
     timed("multi small", multi_small_phase)
     timed("multi cli", multi_cli_phase)
-    multi_by_bucket, multi_lr_by_bucket, multi_k2, multi_k3 = timed(
+    multi_by_bucket, multi_lr_s1, multi_k2, multi_k3 = timed(
         "multi headline, lr, sharded", multi_big_phase, headline_inputs)
     timed("multi auto", multi_auto_phase, headline_inputs, headline_sr_pairs)
     terms_rows, terms_sweep = timed("terms", terms_phase)
@@ -2542,8 +2714,7 @@ def main():
         raise RuntimeError(f"K1 launched on the headline runs in buckets not"
                            f" measured at its shape: {sorted(unmeasured)}")
     for rows, path_launches, path in ((k1_slice, by_bucket, "spmd slice"),
-                                      (k1_lr, {**lr_k1, **lr_stream_k1,
-                                               **multi_lr_by_bucket}, "LR sweep")):
+                                      (k1_lr, {**lr_k1, **lr_stream_k1}, "LR sweep")):
         unmeasured = set(path_launches) - set(rows)
         if unmeasured:
             raise RuntimeError(f"K1 launched on the {path} in buckets not"
@@ -2554,11 +2725,23 @@ def main():
                       "launches_multi_headline": multi_by_bucket.get((Rf, Rt, pure), 0),
                       "launches_pipeline_leg": pipe_by_bucket.get((Rf, Rt, pure), 0)}
                      if rows is k1_slice else
-                     {"launches_lr_streamed": lr_stream_k1.get((Rf, Rt, pure), 0),
-                      "launches_multi_lr": multi_lr_by_bucket.get((Rf, Rt, pure), 0)})
+                     {"launches_lr_streamed": lr_stream_k1.get((Rf, Rt, pure), 0)})
             kernels.append(k1_line(
                 row, (by_bucket if rows is k1_slice else lr_k1).get((Rf, Rt, pure), 0),
                 **extra))
+    # K1's stage-1 form: the LR sweep runs it at S = 1024 (resident, streamed
+    # and on two ranks); no phase here runs the sweep at S = 616
+    unmeasured = set({**lr_s1, **lr_stream_s1, **multi_lr_s1}) - set(s1_rows[K2_S])
+    if unmeasured:
+        raise RuntimeError(f"K1's stage-1 form launched on the LR sweep in buckets"
+                           f" not measured at its shape: {sorted(unmeasured)}")
+    for depth, rows in s1_rows.items():
+        for key, row in rows.items():
+            kernels.append(s1_line(
+                row, lr_s1.get(key, 0) if depth == K2_S else 0,
+                **({"launches_lr_streamed": lr_stream_s1.get(key, 0),
+                    "launches_multi_lr": multi_lr_s1.get(key, 0)}
+                   if depth == K2_S else {})))
     kernels.append(k2_line(k2_row, lr["k2_launches"],
                            launches_lr_streamed=lr["stream_k2_launches"],
                            launches_multi_lr=multi_k2))
@@ -2567,6 +2750,10 @@ def main():
     for key, row in k1_stream.items():
         kernels.append(k1_line(row, stream["k1_by_bucket"].get(key, 0),
                                launches_resident=stream["resident_k1_by_bucket"]
+                               .get(key, 0)))
+    for key, row in s1_stream.items():
+        kernels.append(s1_line(row, stream["k1_stage1_by_bucket"].get(key, 0),
+                               launches_resident=stream["resident_k1_stage1_by_bucket"]
                                .get(key, 0)))
     kernels.append(k2_line(k2_stream, stream["k2_launches"],
                            launches_resident=stream["resident_k2_launches"]))
@@ -2590,6 +2777,13 @@ def main():
                                f" {sorted(unmeasured)}")
         for key, row in trows["k1"].items():
             kernels.append(k1_line(row, by.get(key, 0)))
+        by_s1 = terms_sweep[t]["k1_stage1_by_bucket"]
+        unmeasured = set(by_s1) - set(trows["k1s1"])
+        if unmeasured:
+            raise RuntimeError(f"K1's stage-1 form launched at t={t} in buckets not"
+                               f" measured: {sorted(unmeasured)}")
+        for key, row in trows["k1s1"].items():
+            kernels.append(s1_line(row, by_s1.get(key, 0)))
         kernels.append(k2_line(trows["k2"], terms_sweep[t]["k2_launches"]))
         for (F, T), row in trows["k3"].items():
             kernels.append(k3_line(row, F, T, trows["k3_host_launches"]

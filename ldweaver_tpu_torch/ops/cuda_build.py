@@ -28,9 +28,12 @@ CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 # every kernel source of the package (one library each)
 KERNELS = ("rank_mi", "fused_tile", "compat_mi")
+# -split-compile=0: the optimizer's work on a source's kernel instances
+# spread over every core (rank_mi's 82 instances take ~35 s, not ~94 s,
+# on an H100 host; the same code)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-split-compile=0",
 )
 
 _lock = threading.Lock()

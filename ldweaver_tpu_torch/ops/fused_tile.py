@@ -31,13 +31,14 @@ import ctypes
 import torch
 
 from ldweaver_tpu_torch.ops import cuda_build
-from ldweaver_tpu_torch.ops.rank_mi import (
+from ldweaver_tpu_torch.ops.rank_mi import (  # noqa: F401 (chunk_max: re-export)
+    CHUNK,
     LaunchCounter,
+    check_inputs,
+    chunk_max,
     kernel_terms,
-    rank_mi_tile_reference,
+    rank_mi_stage1_reference,
 )
-
-CHUNK = 128  # stage-1 chunk width (pallas_fused_tile.py: chunk_c)
 
 K2 = LaunchCounter()
 
@@ -76,32 +77,16 @@ def fused_tile_stage1(codes, fs: int, ts: int, nf: int, nt: int, wparts, px,
         )
     if codes.device.type != "cuda":
         raise ValueError(f"fused_tile_stage1: unsupported device {codes.device}")
-    S, ld = codes.shape
-    dev = codes.device
-    checks = (
-        (codes, torch.uint8, (S, ld)),
-        (wparts, torch.bfloat16, (n_terms, S)),
-        (px, torch.float32, (2, nf)),
-        (py, torch.float32, (2, nt)),
-        (pos_f, torch.int32, (nf,)),
-        (pos_t, torch.int32, (nt,)),
-        (val_f, torch.bool, (nf,)),
-        (val_t, torch.bool, (nt,)),
-    )
-    for t, dtype, shape in checks:
-        if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError(
-                f"fused_tile_stage1: expected {dtype} {shape} on {dev}, got"
-                f" {t.dtype} {tuple(t.shape)} on {t.device}"
-            )
-        if not t.is_contiguous():
-            raise ValueError("fused_tile_stage1: inputs must be contiguous")
+    check_inputs("fused_tile_stage1", codes, fs, ts, nf, nt, wparts, n_terms,
+                  2, 2, ((px, torch.float32, (2, nf)), (py, torch.float32, (2, nt)),
+                         (pos_f, torch.int32, (nf,)), (pos_t, torch.int32, (nt,)),
+                         (val_f, torch.bool, (nf,)), (val_t, torch.bool, (nt,))))
     if nf <= 0 or nt <= 0 or nt % CHUNK:
         raise ValueError(
             f"fused_tile_stage1: nt = {nt} must be a positive multiple of {CHUNK}"
         )
-    if not (0 <= fs and fs + nf <= ld and 0 <= ts and ts + nt <= ld):
-        raise ValueError("fused_tile_stage1: tile columns outside the code tensor")
+    S, ld = codes.shape
+    dev = codes.device
     vals = torch.empty((nf, nt // CHUNK), dtype=torch.float32, device=dev)
     cols = torch.empty((nf, nt // CHUNK), dtype=torch.int32, device=dev)
     lib = _library()
@@ -118,35 +103,18 @@ def fused_tile_stage1(codes, fs: int, ts: int, nf: int, nt: int, wparts, px,
     return vals, cols
 
 
-def chunk_max(masked, chunk: int = CHUNK):
-    """Max and first in-tile column attaining it of every `chunk`-wide
-    column chunk of a [nf, nt] tile (nt a multiple of `chunk`); an all
-    -inf chunk reports its first column, as jnp.argmax does."""
-    nf, nt = masked.shape
-    nch = nt // chunk
-    resh = masked.reshape(nf, nch, chunk)
-    m = resh.amax(dim=-1)
-    iota = torch.arange(chunk, device=masked.device)
-    first = torch.where(resh == m[..., None], iota, chunk).amin(dim=-1)
-    base = torch.arange(nch, device=masked.device)[None, :] * chunk
-    return m, (base + first).to(torch.int32)
-
-
 def fused_tile_stage1_reference(codes, fs: int, ts: int, nf: int, nt: int,
                                 wparts, px, py, pos_f, pos_t, val_f, val_t,
                                 neff: float, same_block: bool, *, g: int,
                                 sr_dist: int, dtype=torch.float32):
     """Plain PyTorch K2: K1's plain (2, 2, pure) tile, then the sweep's LR
-    mask and the chunk max in torch ops, computed in `dtype` (float32 as
-    the kernel; float64 gives the exact tile of the same inputs)."""
-    # imported here: the sweep module imports this one
-    from ldweaver_tpu_torch.parallel.fast_sweep import tile_masks
-
+    mask and the chunk max in torch ops (`rank_mi_stage1_reference`),
+    computed in `dtype` (float32 as the kernel; float64 gives the exact
+    tile of the same inputs)."""
     two_f = torch.full((nf,), 2.0, dtype=dtype, device=codes.device)
     two_t = torch.full((nt,), 2.0, dtype=dtype, device=codes.device)
-    mi = rank_mi_tile_reference(
+    return rank_mi_stage1_reference(
         codes, fs, ts, nf, nt, wparts, px, py, two_f, two_t, neff, 2, 2, True,
+        pos_f, pos_t, val_f, val_t, same_block, g=g, sr_dist=sr_dist,
         dtype=dtype,
     )
-    _, lr_ok = tile_masks(pos_f, pos_t, val_f, val_t, same_block, g, sr_dist)
-    return chunk_max(torch.where(lr_ok, mi, float("-inf")))

@@ -18,6 +18,12 @@ SEQUENCE-MAJOR code tensor `codes` [nseq, nsnp_pad] u8 at column offsets
 and return the [nf, nt] f32 MI tile.  A CPU tensor goes to the plain
 version; a CUDA tensor to the kernel (or the call raises).
 `mi_tile_rank_pallas` is the JAX wrapper's host-facing counterpart.
+
+`rank_mi_stage1` is K1's LR stage-1 form, for the LR sweep's tiles that
+K2 does not take: the same tile under the LR mask, reduced in the kernel
+to the max and first argmax of every 128-column chunk, as K2 does for the
+(2, 2, pure) tiles, so only the [nf, nt/128] (value, column) pairs reach
+device memory.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from ldweaver_tpu_torch.ops import cuda_build
 from ldweaver_tpu_torch.support import resolve_device
 
 N_TERMS = 3  # bf16 weight terms a kernel sums at most
+CHUNK = 128  # stage-1 chunk width (pallas_fused_tile.py: chunk_c)
 
 
 class LaunchCounter:
@@ -47,7 +54,8 @@ class LaunchCounter:
         self.by_bucket.clear()
 
 
-K1 = LaunchCounter()
+K1 = LaunchCounter()  # the store form, `rank_mi_tile`
+K1_STAGE1 = LaunchCounter()  # the LR stage-1 form, `rank_mi_stage1`
 
 _ARGTYPES = [
     ctypes.c_int, ctypes.c_int, ctypes.c_int,  # Rf, Rt, pure
@@ -60,12 +68,23 @@ _ARGTYPES = [
 ]
 
 
+# the store form's arguments up to neff, then the LR mask's and outputs
+_STAGE1_ARGTYPES = _ARGTYPES[:17] + [
+    ctypes.c_void_p, ctypes.c_void_p,  # pos_f, pos_t
+    ctypes.c_void_p, ctypes.c_void_p,  # val_f, val_t
+    ctypes.c_int, ctypes.c_int,  # same, g
+    ctypes.c_float, ctypes.c_float,  # half_g, sr_dist
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # vals, cols, stream
+]
+
+
 def _library() -> ctypes.CDLL:
     lib = cuda_build.load("rank_mi")
-    fn = lib.ldw_rank_mi_tile
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
+    for fn, types in ((lib.ldw_rank_mi_tile, _ARGTYPES),
+                      (lib.ldw_rank_mi_stage1, _STAGE1_ARGTYPES)):
+        if fn.argtypes is None:
+            fn.argtypes = types
+            fn.restype = ctypes.c_int
     return lib
 
 
@@ -77,6 +96,34 @@ def kernel_terms(wparts, what: str) -> int:
         raise ValueError(f"{what}: wparts must hold 1 to {N_TERMS} weight terms,"
                          f" got shape {tuple(wparts.shape)}")
     return t
+
+
+def check_inputs(what: str, codes, fs: int, ts: int, nf: int, nt: int,
+                  wparts, n_terms: int, Rf: int, Rt: int, tensors) -> None:
+    """Raise ValueError unless the (tensor, dtype, shape) triples lie on
+    the code tensor's card, contiguous, the bucket within 1..5 and the
+    tile's columns within the code tensor."""
+    S, ld = codes.shape
+    dev = codes.device
+    checks = ((codes, torch.uint8, (S, ld)),
+              (wparts, torch.bfloat16, (n_terms, S))) + tuple(tensors)
+    for t, dtype, shape in checks:
+        if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(
+                f"{what}: expected {dtype} {shape} on {dev}, got"
+                f" {t.dtype} {tuple(t.shape)} on {t.device}"
+            )
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: inputs must be contiguous")
+    if not (1 <= Rf <= 5 and 1 <= Rt <= 5):
+        raise ValueError(f"{what}: (Rf, Rt) = ({Rf}, {Rt}) outside 1..5")
+    if not (0 <= fs and fs + nf <= ld and 0 <= ts and ts + nt <= ld):
+        raise ValueError(f"{what}: tile columns outside the code tensor")
+
+
+def _tile_tensors(nf: int, nt: int, Rf: int, Rt: int, px, py, r_f, r_t):
+    return ((px, torch.float32, (Rf, nf)), (py, torch.float32, (Rt, nt)),
+            (r_f, torch.float32, (nf,)), (r_t, torch.float32, (nt,)))
 
 
 def rank_mi_tile(codes, fs: int, ts: int, nf: int, nt: int, wparts, px, py,
@@ -91,28 +138,10 @@ def rank_mi_tile(codes, fs: int, ts: int, nf: int, nt: int, wparts, px, py,
         )
     if codes.device.type != "cuda":
         raise ValueError(f"rank_mi_tile: unsupported device {codes.device}")
+    check_inputs("rank_mi_tile", codes, fs, ts, nf, nt, wparts, n_terms, Rf,
+                  Rt, _tile_tensors(nf, nt, Rf, Rt, px, py, r_f, r_t))
     S, ld = codes.shape
     dev = codes.device
-    checks = (
-        (codes, torch.uint8, (S, ld)),
-        (wparts, torch.bfloat16, (n_terms, S)),
-        (px, torch.float32, (Rf, nf)),
-        (py, torch.float32, (Rt, nt)),
-        (r_f, torch.float32, (nf,)),
-        (r_t, torch.float32, (nt,)),
-    )
-    for t, dtype, shape in checks:
-        if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError(
-                f"rank_mi_tile: expected {dtype} {shape} on {dev}, got"
-                f" {t.dtype} {tuple(t.shape)} on {t.device}"
-            )
-        if not t.is_contiguous():
-            raise ValueError("rank_mi_tile: inputs must be contiguous")
-    if not (1 <= Rf <= 5 and 1 <= Rt <= 5):
-        raise ValueError(f"rank_mi_tile: (Rf, Rt) = ({Rf}, {Rt}) outside 1..5")
-    if not (0 <= fs and fs + nf <= ld and 0 <= ts and ts + nt <= ld):
-        raise ValueError("rank_mi_tile: tile columns outside the code tensor")
     out = torch.empty((nf, nt), dtype=torch.float32, device=dev)
     if nf == 0 or nt == 0:
         return out
@@ -127,6 +156,85 @@ def rank_mi_tile(codes, fs: int, ts: int, nf: int, nt: int, wparts, px, py,
     K1.launches += 1
     K1.by_bucket[(Rf, Rt, bool(pure))] += 1
     return out
+
+
+def rank_mi_stage1(codes, fs: int, ts: int, nf: int, nt: int, wparts, px, py,
+                   r_f, r_t, neff: float, Rf: int, Rt: int, pure: bool,
+                   pos_f, pos_t, val_f, val_t, same_block: bool, *, g: int,
+                   sr_dist: int):
+    """K1's LR stage-1 form: the [nf, nt] tile of the bucket (Rf, Rt, pure)
+    under the LR mask of `fast_sweep.tile_masks` (positions pos_f [nf],
+    pos_t [nt] i32; validity val_f, val_t bool; the triangle on a diagonal
+    block pair), reduced to the max and first in-tile column attaining it
+    of every 128-column chunk -> vals [nf, nt/128] f32, cols i32.  The
+    values are those of `rank_mi_tile` and `chunk_max` bit for bit."""
+    n_terms = kernel_terms(wparts, "rank_mi_stage1")
+    if codes.device.type == "cpu":
+        return rank_mi_stage1_reference(
+            codes, fs, ts, nf, nt, wparts, px, py, r_f, r_t, neff, Rf, Rt,
+            pure, pos_f, pos_t, val_f, val_t, same_block, g=g, sr_dist=sr_dist,
+        )
+    if codes.device.type != "cuda":
+        raise ValueError(f"rank_mi_stage1: unsupported device {codes.device}")
+    check_inputs("rank_mi_stage1", codes, fs, ts, nf, nt, wparts, n_terms, Rf,
+                  Rt, _tile_tensors(nf, nt, Rf, Rt, px, py, r_f, r_t) + (
+                      (pos_f, torch.int32, (nf,)), (pos_t, torch.int32, (nt,)),
+                      (val_f, torch.bool, (nf,)), (val_t, torch.bool, (nt,))))
+    if nf <= 0 or nt <= 0 or nt % CHUNK:
+        raise ValueError(
+            f"rank_mi_stage1: nt = {nt} must be a positive multiple of {CHUNK}"
+        )
+    S, ld = codes.shape
+    dev = codes.device
+    vals = torch.empty((nf, nt // CHUNK), dtype=torch.float32, device=dev)
+    cols = torch.empty((nf, nt // CHUNK), dtype=torch.int32, device=dev)
+    lib = _library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.ldw_rank_mi_stage1(
+        Rf, Rt, int(bool(pure)), codes.data_ptr(), ld, fs, ts, nf, nt, S,
+        wparts.data_ptr(), n_terms, px.data_ptr(), py.data_ptr(), r_f.data_ptr(),
+        r_t.data_ptr(), float(neff), pos_f.data_ptr(), pos_t.data_ptr(),
+        val_f.data_ptr(), val_t.data_ptr(), int(bool(same_block)), int(g),
+        0.5 * g, float(sr_dist), vals.data_ptr(), cols.data_ptr(), stream,
+    )
+    cuda_build.check(lib, rc, "rank_mi_stage1")
+    K1_STAGE1.launches += 1
+    K1_STAGE1.by_bucket[(Rf, Rt, bool(pure))] += 1
+    return vals, cols
+
+
+def chunk_max(masked, chunk: int = CHUNK):
+    """Max and first in-tile column attaining it of every `chunk`-wide
+    column chunk of a [nf, nt] tile (nt a multiple of `chunk`); an all
+    -inf chunk reports its first column, as jnp.argmax does."""
+    nf, nt = masked.shape
+    nch = nt // chunk
+    resh = masked.reshape(nf, nch, chunk)
+    m = resh.amax(dim=-1)
+    iota = torch.arange(chunk, device=masked.device)
+    first = torch.where(resh == m[..., None], iota, chunk).amin(dim=-1)
+    base = torch.arange(nch, device=masked.device)[None, :] * chunk
+    return m, (base + first).to(torch.int32)
+
+
+def rank_mi_stage1_reference(codes, fs: int, ts: int, nf: int, nt: int, wparts,
+                             px, py, r_f, r_t, neff: float, Rf: int, Rt: int,
+                             pure: bool, pos_f, pos_t, val_f, val_t,
+                             same_block: bool, *, g: int, sr_dist: int,
+                             dtype=torch.float32):
+    """Plain PyTorch LR stage 1 (K1's stage-1 form, and K2 on (2, 2, pure)
+    tiles): the plain tile, then the sweep's LR mask and the chunk max in
+    torch ops, computed in `dtype` (float32 as the kernels; float64 gives
+    the exact tile of the same inputs)."""
+    # imported here: the sweep module imports this one
+    from ldweaver_tpu_torch.parallel.fast_sweep import tile_masks
+
+    mi = rank_mi_tile_reference(
+        codes, fs, ts, nf, nt, wparts, px, py, r_f, r_t, neff, Rf, Rt, pure,
+        dtype=dtype,
+    )
+    _, lr_ok = tile_masks(pos_f, pos_t, val_f, val_t, same_block, g, sr_dist)
+    return chunk_max(torch.where(lr_ok, mi, float("-inf")))
 
 
 def rank_mi_tile_reference(codes, fs: int, ts: int, nf: int, nt: int, wparts,

@@ -26,12 +26,14 @@ device, or, when they exceed 60% of the device budget, streams them
 through a slab cache's pool (parallel/slabs.py).  Each shard (local
 device and process, parallel/multihost.py) folds its tiles' two-stage LR
 top-k into a running top-k on its device 32 tiles at a time, and the
-host merges the shards'.  (2, 2, pure) tiles wider than 1024 columns go
-through kernel K2 (ops/fused_tile.py: tile, LR mask and 128-column chunk
-max in one pass); every other tile through K1, the mask in torch ops and
-`tile_lr_topk`.  Top-k keeps the lowest index among equal values, as
-`lax.top_k` does (stable sorts), and the merge breaks ties in the JAX
-sweep's visiting order, as its carries do.
+host merges the shards'.  Tiles wider than 1024 columns, in whole
+128-column chunks, take the chunked stage 1 inside a kernel (tile, LR
+mask and 128-column chunk max in one pass): the (2, 2, pure) ones K2
+(ops/fused_tile.py), every other one K1's stage-1 form
+(ops/rank_mi.rank_mi_stage1).  Narrower tiles go through K1's stored
+tile, the mask in torch ops and `tile_lr_topk`.  Top-k keeps the lowest
+index among equal values, as `lax.top_k` does (stable sorts), and the
+merge breaks ties in the JAX sweep's visiting order, as its carries do.
 """
 
 from __future__ import annotations
@@ -42,8 +44,15 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ldweaver_tpu_torch.ops.fused_tile import CHUNK, chunk_max, fused_tile_stage1
-from ldweaver_tpu_torch.ops.rank_mi import N_TERMS, pair_codes, rank_mi_tile
+from ldweaver_tpu_torch.ops.fused_tile import fused_tile_stage1
+from ldweaver_tpu_torch.ops.rank_mi import (
+    CHUNK,
+    N_TERMS,
+    chunk_max,
+    pair_codes,
+    rank_mi_stage1,
+    rank_mi_tile,
+)
 from ldweaver_tpu_torch.support import resolve_device
 from ldweaver_tpu_torch.utils.profiling import span
 
@@ -429,10 +438,18 @@ def prepare_fast_sweep(
         )
 
 
+def kernel_stage1(block: int) -> bool:
+    """True where a tile's LR top-k takes the chunked stage 1 inside a
+    kernel: more than 1024 columns (`tile_lr_topk`'s chunked branch, the
+    JAX scan's) in whole 128-column chunks."""
+    return block > 1024 and block % CHUNK == 0
+
+
 def uses_fused_tile(key: Tuple[int, int, bool], block: int) -> bool:
-    """True for the tiles K2 computes: (2, 2, pure) tiles on which the JAX
-    scan takes the chunked stage 1 (block > 1024, a multiple of 128)."""
-    return key == (2, 2, True) and block > 1024 and block % CHUNK == 0
+    """True for the tiles K2 computes: (2, 2, pure) tiles that take the
+    chunked stage 1 inside a kernel (`kernel_stage1`); K1's stage-1 form
+    takes the other buckets' such tiles."""
+    return key == (2, 2, True) and kernel_stage1(block)
 
 
 def _tile_candidates(state: FastSweepState, bi: int, bj: int,
@@ -458,11 +475,13 @@ def _tile_candidates(state: FastSweepState, bi: int, bj: int,
             bi == bj, g=g, sr_dist=sr_dist,
         )
         return chunk_topk(c_vals, c_cols, B, topk)
-    mi = rank_mi_tile(
-        dev.codes, cf, ct, B, B, parts, marg[bi, :Rf],
-        marg[bj, :Rt], dev.r[fs : fs + B], dev.r[ts : ts + B], dev.neff,
-        Rf, Rt, pure,
-    )
+    tile = (dev.codes, cf, ct, B, B, parts, marg[bi, :Rf], marg[bj, :Rt],
+            dev.r[fs : fs + B], dev.r[ts : ts + B], dev.neff, Rf, Rt, pure)
+    if kernel_stage1(B):
+        c_vals, c_cols = rank_mi_stage1(*tile, pos_f, pos_t, val_f, val_t,
+                                        bi == bj, g=g, sr_dist=sr_dist)
+        return chunk_topk(c_vals, c_cols, B, topk)
+    mi = rank_mi_tile(*tile)
     _, lr_ok = tile_masks(pos_f, pos_t, val_f, val_t, bi == bj, g, sr_dist)
     return tile_lr_topk(torch.where(lr_ok, mi, float("-inf")), B, B, topk)
 

@@ -4,7 +4,9 @@ the virtual CPU mesh, on the bench.py `synth` recipe at 64 genomes x
 8,192 SNPs.
 
 Block 2048 takes the chunked stage 1: the (2, 2, pure) tiles go through
-K2's plain version, the r = 3 buckets through K1 and `tile_lr_topk`.
+K2's plain version, the r = 3 buckets through K1's stage-1 form, whose
+candidates must be those of K1's stored tile after `tile_masks` and
+`tile_lr_topk` bit for bit, resident and streaming.
 Block 512 takes the per-row top-k branch everywhere.  The top-k must hold
 the same pairs in the same order apart from near-ties (|dMI| <= 1e-5, at
 the k-th value for pairs on one side only), with MI within the tile
@@ -74,11 +76,60 @@ def test_fast_lr_topk_matches_jax(data, block):
         assert tfs.uses_fused_tile((2, 2, True), block)
     else:
         assert not tfs.uses_fused_tile((2, 2, True), block)
-    k1, k2 = rank_mi.K1.launches, fused_tile.K2.launches
+    counters = (rank_mi.K1, rank_mi.K1_STAGE1, fused_tile.K2)
+    before = [c.launches for c in counters]
     got = tfs.fast_lr_topk(sr_dist=20000, topk=TOPK, state=state)
     # CPU tensors take the plain versions: no kernel launches
-    assert (rank_mi.K1.launches, fused_tile.K2.launches) == (k1, k2)
+    assert [c.launches for c in counters] == before
     assert_topk_agree(ref, got)
+
+
+@pytest.mark.parametrize("streaming", [False, True])
+def test_k1_stage1_tiles_match_the_stored_tile(data, streaming):
+    """Every r = 3 tile at block 2048 takes K1's stage-1 form, whose top-k
+    candidates are the stored tile's after the mask and `tile_lr_topk`,
+    bit for bit (so the sweep's answer is the one it was before the form
+    existed); the whole top-k agrees with the JAX package's sweep, resident
+    and streaming through a slab pool."""
+    import torch
+
+    sd_j, w = data["jax"]
+    sd_t, _ = data["torch"]
+    budget = 64 * 2048 * 4 if streaming else None
+    state = tfs.prepare_fast_sweep(sd_t, w, block=2048, device="cpu",
+                                   hbm_budget_bytes=budget)
+    assert state.streaming == streaming
+    B, g = state.block, int(state.g)
+    k1_keys = [k for k in state.buckets if not tfs.uses_fused_tile(k, B)]
+    assert tfs.kernel_stage1(B) and any(k[1] == 3 for k in k1_keys)
+    dev = state.dev
+    for key in k1_keys:
+        Rf, Rt, pure = key
+        for bi, bj in state.buckets[key]:
+            cols = None
+            if streaming:
+                cache = state.slab_cache
+                cache.unpin()
+                cache.pin([bi, bj])
+                cols = (cache.get(bi), cache.get(bj))
+            got = tfs._tile_candidates(state, bi, bj, key, 20000, TOPK, cols)
+            fs, ts = bi * B, bj * B
+            cf, ct = cols if cols is not None else (fs, ts)
+            mi = rank_mi.rank_mi_tile(
+                dev.codes, cf, ct, B, B, dev.wparts, state.marg[bi, :Rf],
+                state.marg[bj, :Rt], dev.r[fs : fs + B], dev.r[ts : ts + B],
+                dev.neff, Rf, Rt, pure)
+            _, lr_ok = tfs.tile_masks(dev.pos[fs : fs + B], dev.pos[ts : ts + B],
+                                      dev.valid[fs : fs + B],
+                                      dev.valid[ts : ts + B], bi == bj, g, 20000)
+            want = tfs.tile_lr_topk(torch.where(lr_ok, mi, float("-inf")), B, B, TOPK)
+            assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+            assert torch.equal(got[1], want[1])
+    if streaming:
+        state.slab_cache.unpin()
+    ref = jfs.fast_lr_topk(sd_j, w, block=2048, sr_dist=20000, topk=TOPK,
+                           n_devices=1, hbm_budget_bytes=budget)
+    assert_topk_agree(ref, tfs.fast_lr_topk(sr_dist=20000, topk=TOPK, state=state))
 
 
 def test_tile_lr_topk_pads_a_ragged_chunk():
